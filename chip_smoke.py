@@ -24,14 +24,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel; the main path's layers timed alone, and its device busy share
    over a profiled window of three frames;
 5. the oracle gate: the main path at 192x96 x 4 bounces against
-   tracer="brute" at the same seed, RMSE < 1e-3.
+   tracer="brute" at the same seed, RMSE < 1e-3;
+6. the other configurations of the megakernel frame, each driven through
+   ``Renderer(..., device="cuda")`` with the launch counts set to 0 just
+   before it and read just after:
+   a. the quality preset: ``fixtures.sample_scene()`` at 1920x1080, spp 25,
+      10 bounces, ``spp_chunk=5`` (5 path and 5 env launches a frame), a
+      warm-up and two timed frames, peak device memory;
+   b. the bounce split on the main path's cell (``split_bounce=2,
+      split_frac=0.125``): one frame within 1e-5 of the unsplit frame of
+      the same key, then 15 ``step(1)`` frames of each in turns, the host
+      waits of one split step, and the cost of its remainder pass;
+   c. ``dispatch_bands=5`` on the same cell: one step bit-equal to the
+      manual composition of its five bands under the key chain;
+   d. ``cuda_env.ENV_IMPL = "bf16"``: one frame bit-equal to the default
+      impl's, through the byte-plane kernel;
+   and two small checks: the split's overflow regime at 192x96 (survivors
+   past the compact buffer) within 1e-5 of unsplit, and a chunked frame at
+   192x96 (spp 5, ``spp_chunk=2``) against its spp-weighted sub-frames.
+
+Phase 3 also holds the byte-plane env kernel against its plain version (bit
+for bit, the same 2,073,600 texels) and the path kernel's 16 resume-state
+rows against the plain version's (bit for bit, at 192x96 x 4 and on the
+1080p x 8 subset with two bounces).
 
 The line before the last is a JSON object with each kernel's launches in
-the main-path run (0 for the closest-hit kernel, which that path does not
-use; its count from the megakernel=False frame stands under
-``launches_megakernel_false``), its error against the plain version and
-both times; the last line is ``{"ok": true, "device": {...}}``. Without a
-CUDA device it exits non-zero and prints no result.
+the run of the path that uses it (the main path for the path and env
+kernels; 0 for the closest-hit kernel, whose count from the
+megakernel=False frame stands under ``launches_megakernel_false``; the
+bf16 frame for the byte-plane kernel), the counts of every path under
+``launches_by_path``, its error against the plain version and both times;
+the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
+exits non-zero and prints no result.
 """
 
 import json
@@ -39,11 +63,18 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_TRIS = 100_000
 MAIN = dict(width=1920, height=1080, spp=1, bounces=8, tracer="pallas",
             wavefront=True, rr_group="step")
+# The reference's quality preset (SampleScene.unity:433-434: 10 bounces,
+# 25 rays per pixel) at 1080p, in chunks of 5 samples as the JAX package
+# renders it (README.md:217-223).
+QUALITY = dict(width=1920, height=1080, spp=25, bounces=10, tracer="pallas",
+               wavefront=True, rr_group="step", spp_chunk=5)
+SPLIT = dict(split_bounce=2, split_frac=0.125)
 
 
 def log(*a):
@@ -89,8 +120,12 @@ def main() -> int:
 
     from unityraytracer_tpu_torch import RenderConfig, Renderer, _build, rng
     from unityraytracer_tpu_torch.models import fixtures
+    from unityraytracer_tpu_torch.ops import cuda_env
     from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
-    from unityraytracer_tpu_torch.ops.cuda_env import (env_lookup,
+    from unityraytracer_tpu_torch.ops.cuda_env import (byte_planes,
+                                                       env_lookup,
+                                                       env_lookup_planes,
+                                                       env_lookup_planes_plain,
                                                        env_lookup_plain)
     from unityraytracer_tpu_torch.ops.cuda_path import (path_trace,
                                                         path_trace_plain)
@@ -98,9 +133,11 @@ def main() -> int:
                                                          closest_hit_plain,
                                                          trace_hits)
     from unityraytracer_tpu_torch.ops import vec
-    from unityraytracer_tpu_torch.render import (_env_tap, mega_inputs,
+    from unityraytracer_tpu_torch.render import (RenderState, _env_tap,
+                                                 mega_inputs,
                                                  progressive_step,
-                                                 render_frame, render_sample)
+                                                 render_frame, render_sample,
+                                                 split_capacity)
     from unityraytracer_tpu_torch.ops.trace import make_brute_tracer
     from unityraytracer_tpu_torch.utils.image import rmse
 
@@ -164,6 +201,27 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: env_lookup_plain(scene.skybox_rgbe, yn, xn,
                                                   W), 20, 3))
     log("env:", json.dumps(kernels["env"]))
+
+    # 3a'. Byte-plane env kernel vs plain, bit-identical on the same texels
+    # (and to the packed-word kernel's result).
+    planes = byte_planes(scene.skybox_rgbe, H, W)
+    got = env_lookup_planes(planes, yn, xn, W)
+    want = env_lookup_planes_plain(planes, yn, xn, W)
+    words = env_lookup(scene.skybox_rgbe, yn, xn, W)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, words):
+        if not (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                and torch.equal(a.view(torch.int32), c.view(torch.int32))):
+            raise AssertionError("byte-plane env kernel differs from its "
+                                 "plain version or the packed-word kernel")
+    kernels["env_planes"] = dict(
+        route="cuda", source="unityraytracer_tpu_torch/csrc/env_kernel.cu",
+        replaces="unityraytracer_tpu/ops/pallas_env.py:63",
+        max_abs_err=0.0, n=n_env,
+        ms=cuda_ms(lambda: env_lookup_planes(planes, yn, xn, W), 20, 3),
+        plain_ms=cuda_ms(lambda: env_lookup_planes_plain(planes, yn, xn, W),
+                         20, 3))
+    log("env_planes:", json.dumps(kernels["env_planes"]))
 
     # 3b. Closest-hit kernel vs plain.
     def camera_rays(cam, width, height, seed):
@@ -264,14 +322,37 @@ def main() -> int:
                                  f"{ulps} ulp")
         return ro, rd, uni, uni_s, sel, float(diff.max())
 
+    def state_check(cfg, cam, key, stride, nb, tag):
+        """The 16 resume-state rows after ``nb`` bounces, kernel vs plain,
+        bit for bit, dead rays included (zero energy where alive is 0)."""
+        ro, rd, uni, _, _, _ = mega_inputs(scene, cam, key, cfg)
+        *_, sk = path_trace(ks, ro, rd, uni[:nb], cfg, nb=nb, emit_state=True)
+        idx = torch.arange(0, ro[0].shape[0], stride, device=dev)
+        sel = lambda v3: tuple(c[idx].contiguous() for c in v3)  # noqa: E731
+        *_, sp = path_trace_plain(ks, sel(ro), sel(rd),
+                                  uni[:nb, :, idx].contiguous(), cfg, nb=nb,
+                                  emit_state=True)
+        _build.raise_on_overflow(dev)
+        sk = sk[:, idx]
+        same = torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+        dead = sk[9] == 0
+        zero_dead = bool((sk[6:9, dead] == 0).all() and (sk[10:] == 0).all())
+        log(f"path state[{tag}]: {idx.numel()} rays, nb={nb}, 16 rows "
+            f"bit-identical {same}, alive {float((~dead).float().mean()):.4f}, "
+            f"dead rays' energy 0 {zero_dead}")
+        if not (same and zero_dead):
+            raise AssertionError(f"path kernel state vs plain ({tag})")
+
     cfg_s = small_cfg()
     ro, rd, uni, _, _, err_path = path_check(cfg_s, cam_small, rng.key(7), 1,
                                              "192x96x4")
+    state_check(cfg_s, cam_small, rng.key(7), 1, 4, "192x96x4")
     ms_small = cuda_ms(lambda: path_trace(ks, ro, rd, uni, cfg_s), 10, 2)
     plain_ms = cuda_ms(lambda: path_trace_plain(ks, ro, rd, uni, cfg_s), 2, 1)
     cfg_m = RenderConfig(**MAIN)
     rom, rdm, unim, _, _, err_m = path_check(cfg_m, cam_main, rng.key(8), 97,
                                              "1080p x 8 subset")
+    state_check(cfg_m, cam_main, rng.key(8), 97, 2, "1080p x 8 subset")
     kernels["path"] = dict(
         route="cuda", source="unityraytracer_tpu_torch/csrc/path_kernel.cu",
         replaces="unityraytracer_tpu/ops/pallas_path.py:59",
@@ -300,8 +381,7 @@ def main() -> int:
         if launches[k] < 1:
             raise AssertionError(f"kernel {k!r} never launched on the main "
                                  f"path: {launches}")
-    for k in kernels:
-        kernels[k]["launches"] = launches[k]
+    by_path = {"main": launches}
     med = float(np.median(frame_ms))
     mrays = cfg_m.num_rays * cfg_m.bounces / med / 1e3
     log(f"main path 1920x1080x8, 100k tris: {med:.2f} ms/frame median of "
@@ -386,10 +466,222 @@ def main() -> int:
     log(f"alive fraction {alive_frac:.4f} -> effective "
         f"{mrays * alive_frac:.2f} Mrays/s")
 
+    # 6. This slice's paths, each counted on its own.
+    def counted(fn):
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
+        out = fn()
+        return out, dict(_build.LAUNCHES)
+
+    def bits_equal(a, b):
+        a = torch.as_tensor(a).float().contiguous()
+        b = torch.as_tensor(b).float().contiguous()
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    # 6a. The quality preset.
+    qcfg = RenderConfig(**QUALITY)
+    scene_q = fixtures.sample_scene()
+    cam_q = fixtures.sample_scene_camera(16 / 9)
+    torch.cuda.reset_peak_memory_stats()
+    rq = Renderer(scene_q, cam_q, qcfg, seed=0, device="cuda").step(1)
+    q_ms, q_launch = [], []
+    for _ in range(2):
+        _, la = counted(lambda: rq.step(1))
+        q_ms.append(rq.stats["ms_per_frame"])
+        q_launch.append(la)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    img = rq.image
+    n_chunks = -(-qcfg.spp // qcfg.spp_chunk)
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("quality preset: non-finite or black image")
+    for la in q_launch:
+        if la["path"] != n_chunks or la["env"] != n_chunks:
+            raise AssertionError(f"quality preset: expected {n_chunks} path "
+                                 f"and env launches a frame, got {la}")
+    by_path["quality"] = q_launch[-1]
+    q_rays = qcfg.num_rays * qcfg.bounces
+    log(f"quality preset 1920x1080 spp 25 x 10 bounces (spp_chunk 5) on "
+        f"sample_scene ({scene_q.num_triangles} triangles): frames "
+        f"{', '.join(f'{t:.2f}' for t in q_ms)} ms, "
+        f"{q_rays / np.mean(q_ms) / 1e3:.2f} Mrays/s dispatched "
+        f"({q_rays / 1e6:.1f}M slots a frame), peak device memory "
+        f"{peak_gb:.3f} GiB; launches a frame {q_launch[-1]}")
+    # Where one chunk's time goes (CUDA events, each layer alone).
+    qsub = qcfg.replace(spp=qcfg.spp_chunk, spp_chunk=None)
+    qkey = rng.key(13)
+    ro, rd, uni, su1, su2, _ = mega_inputs(rq.scene, cam_q, qkey, qsub)
+    _, _, sd = path_trace(rq.accel, ro, rd, uni, qsub)
+    q_layers = {
+        "rays_and_uniform_rows": cuda_ms(
+            lambda: mega_inputs(rq.scene, cam_q, qkey, qsub), 2),
+        "path_kernel": cuda_ms(lambda: path_trace(rq.accel, ro, rd, uni,
+                                                  qsub), 3),
+        "sky_tap": cuda_ms(lambda: _env_tap(rq.scene, qsub, sd, su1, su2),
+                           3),
+    }
+    log("quality preset, one chunk of 10.4M rays, layers (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in q_layers.items()))
+    del rq, ro, rd, uni, su1, su2, sd
+
+    # 6b. The bounce split on the main path's cell.
+    scfg = cfg_m.replace(**SPLIT)
+    fkey = rng.key(21)
+    unsplit = render_frame(scene, cfg_m, cam_main, fkey, r.accel)
+    split, la = counted(lambda: render_frame(scene, scfg, cam_main, fkey,
+                                             r.accel))
+    _build.raise_on_overflow(dev)
+    split_err = float((split - unsplit).abs().max())
+    log(f"split vs unsplit (1080p x 8, split_bounce 2, frac 0.125): "
+        f"max |diff| {split_err:.3e}; launches {la}")
+    if not (torch.isfinite(split).all() and split_err <= 1e-5):
+        raise AssertionError(f"split frame differs from unsplit: {split_err}")
+    ro, rd, uni, su1, su2, _ = mega_inputs(scene, cam_main, fkey, cfg_m)
+    *_, st = path_trace(r.accel, ro, rd, uni[:2], cfg_m, nb=2,
+                        emit_state=True)
+    n_alive = int(st[9].sum())
+    cap = split_capacity(cfg_m.num_rays, SPLIT["split_frac"])
+    dead = torch.zeros_like(ro[0])
+    rem_ms = cuda_ms(lambda: path_trace(
+        r.accel, tuple(st[0:3]), tuple(st[3:6]), uni[2:], cfg_m, b0=2, nb=6,
+        energy0=tuple(st[6:9]), alive0=dead), 10, 2)
+    _, _, sd_rem = path_trace(r.accel, tuple(st[0:3]), tuple(st[3:6]),
+                              uni[2:], cfg_m, b0=2, nb=6,
+                              energy0=tuple(st[6:9]), alive0=dead)
+    rem_sky_ms = cuda_ms(lambda: _env_tap(scene, cfg_m, sd_rem, su1, su2),
+                         10, 2)
+    log(f"split: {n_alive} of {cfg_m.num_rays} rays alive after bounce 2, "
+        f"compact buffer {cap}; remainder pass with no overflow: path "
+        f"kernel {rem_ms:.3f} ms + full-width sky tap {rem_sky_ms:.3f} ms")
+    del ro, rd, uni, su1, su2, st, sd_rem, dead
+    rs = Renderer(scene_np, cam_main, scfg, accel=r.accel, seed=0,
+                  device="cuda")
+    ru = Renderer(scene_np, cam_main, cfg_m, accel=r.accel, seed=0,
+                  device="cuda")
+    rs.step(1)
+    ru.step(1)
+    waits = {}
+    for tag, rr in (("split", rs), ("unsplit", ru)):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rr.step(1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        waits[tag] = [f"{os.path.basename(w.filename)}:{w.lineno}"
+                      for w in caught
+                      if "called a synchronizing" in str(w.message)]
+    log(f"host waits in one step(1), by the line that waited: {waits}")
+    if len(waits["split"]) > len(waits["unsplit"]):
+        raise AssertionError(f"the split step waits on the device: {waits}")
+    ab = {"split": [], "unsplit": []}
+    split_launch = {k: 0 for k in _build.LAUNCHES}
+    for _ in range(15):
+        _, la = counted(lambda: rs.step(1))
+        ab["split"].append(rs.stats["ms_per_frame"])
+        for k in la:
+            split_launch[k] += la[k]
+        ru.step(1)
+        ab["unsplit"].append(ru.stats["ms_per_frame"])
+    by_path["split"] = split_launch
+    if split_launch["path"] != 45 or split_launch["env"] != 45:
+        raise AssertionError(f"split frames: expected 3 path and 3 env "
+                             f"launches each, got {split_launch} in 15")
+    log("split A/B, 15 step(1) frames each in turns: " + "; ".join(
+        f"{k} median {np.median(v):.2f} ms (min {min(v):.2f}, max "
+        f"{max(v):.2f}), {cfg_m.num_rays * cfg_m.bounces / np.median(v) / 1e3:.2f}"
+        f" Mrays/s" for k, v in ab.items()))
+    del rs, ru, split, unsplit
+
+    # 6c. Bands: one step against the manual composition under the key chain.
+    bcfg5 = cfg_m.replace(dispatch_bands=5)
+    rb, la = counted(lambda: Renderer(scene_np, cam_main, bcfg5,
+                                      accel=r.accel, seed=5,
+                                      device="cuda").step(1))
+    by_path["bands"] = la
+    _, sub5 = rng.split(rng.key(5))
+    fkey5 = rng.fold_in(sub5, 0)
+    bh = -(-cfg_m.height // 5)
+    manual = [render_frame(scene, bcfg5, cam_main, rng.fold_in(fkey5, bi),
+                           r.accel, row0=row0, rows=min(bh, cfg_m.height - row0))
+              for bi, row0 in enumerate(range(0, cfg_m.height, bh))]
+    want = progressive_step(RenderState.create(cfg_m.width, cfg_m.height, dev),
+                            torch.cat(manual, dim=0)).accum
+    same = bits_equal(rb.state.accum, want)
+    log(f"bands: 5 bands of {[m.shape[0] for m in manual]} rows, "
+        f"{rb.stats['ms_per_frame']:.2f} ms; bit-equal to the manual "
+        f"composition {same}; launches {la}")
+    if not (same and la["path"] == 5 and la["env"] == 5):
+        raise AssertionError("banded step differs from its manual "
+                             f"composition or launched {la}")
+    band_ms = [rb.step(1).stats["ms_per_frame"] for _ in range(5)]
+    log(f"bands: 5 more step(1) frames, median {np.median(band_ms):.2f} ms "
+        f"(min {min(band_ms):.2f}, max {max(band_ms):.2f})")
+    del rb, manual, want
+
+    # 6d. The bf16 impl: the byte-plane kernel in a main-path frame.
+    r_def = Renderer(scene_np, cam_main, cfg_m, accel=r.accel, seed=9,
+                     device="cuda").step(1)
+    cuda_env.ENV_IMPL = "bf16"
+    try:
+        r_bf, la = counted(lambda: Renderer(scene_np, cam_main, cfg_m,
+                                            accel=r.accel, seed=9,
+                                            device="cuda").step(1))
+    finally:
+        cuda_env.ENV_IMPL = "int8x8"
+    by_path["bf16"] = la
+    same = bits_equal(r_bf.state.accum, r_def.state.accum)
+    log(f"bf16 impl frame: bit-equal to the default impl {same}; "
+        f"launches {la}")
+    if not (same and la["env_planes"] >= 1 and la["env"] == 0):
+        raise AssertionError(f"bf16 impl frame: equal {same}, launches {la}")
+    del r_def, r_bf
+
+    # Small checks: the split's overflow regime, and chunk composition.
+    ocfg = cfg_s.replace(split_bounce=1, split_frac=1e-9)
+    okey = rng.key(31)
+    ro, rd, uni, _, _, _ = mega_inputs(scene, cam_small, okey, cfg_s)
+    *_, st = path_trace(ks, ro, rd, uni[:1], cfg_s, nb=1, emit_state=True)
+    n_alive, cap = int(st[9].sum()), split_capacity(ro[0].shape[0], 1e-9)
+    a = render_frame(scene, cfg_s, cam_small, okey, ks)
+    b = render_frame(scene, ocfg, cam_small, okey, ks)
+    over_err = float((a - b).abs().max())
+    log(f"split overflow at 192x96x4: {n_alive} survivors, buffer {cap}, "
+        f"max |diff| {over_err:.3e}")
+    if not (n_alive > cap and over_err <= 1e-5):
+        raise AssertionError(f"split overflow regime: {n_alive} vs {cap}, "
+                             f"diff {over_err}")
+    ccfg = cfg_s.replace(spp=5, spp_chunk=2)
+    ckey = rng.key(41)
+    chunked = render_frame(scene, ccfg, cam_small, ckey, ks)
+    s2, s1 = ccfg.replace(spp=2, spp_chunk=None), \
+        ccfg.replace(spp=1, spp_chunk=None)
+    parts = (render_frame(scene, s2, cam_small, rng.fold_in(ckey, 0), ks) * 0.4
+             + render_frame(scene, s2, cam_small, rng.fold_in(ckey, 1), ks)
+             * 0.4
+             + render_frame(scene, s1, cam_small, rng.fold_in(ckey, 2), ks)
+             * 0.2)
+    chunk_err = float((chunked - parts).abs().max())
+    log(f"spp_chunk composition at 192x96 (spp 5, chunk 2): max |diff| "
+        f"{chunk_err:.3e}")
+    torch.testing.assert_close(chunked, parts, rtol=1e-4, atol=5e-5)
+    del ro, rd, uni, st
+
+    for k in kernels:
+        use = "bf16" if k == "env_planes" else "main"
+        kernels[k]["launches"] = by_path[use][k]
+        kernels[k]["launches_by_path"] = {p_: v[k] for p_, v in
+                                          by_path.items()}
+    if kernels["env_planes"]["launches"] < 1:
+        raise AssertionError("the byte-plane env kernel never launched")
+
     _build.raise_on_overflow(dev)
     log(card)
     keys = ("route", "source", "replaces", "launches",
-            "launches_megakernel_false", "max_abs_err", "ms", "plain_ms")
+            "launches_megakernel_false", "launches_by_path", "max_abs_err",
+            "ms", "plain_ms")
     log(json.dumps({"kernels": [
         {"name": k, **{f: v[f] for f in keys if f in v}}
         for k, v in kernels.items()]}))

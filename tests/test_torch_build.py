@@ -12,7 +12,8 @@ import torch
 from unityraytracer_tpu_torch import _build
 from unityraytracer_tpu_torch.models import fixtures
 from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
-from unityraytracer_tpu_torch.ops.cuda_env import env_lookup
+from unityraytracer_tpu_torch.ops.cuda_env import (byte_planes, env_lookup,
+                                                   env_lookup_planes)
 from unityraytracer_tpu_torch.ops.cuda_path import path_trace
 from unityraytracer_tpu_torch.ops.cuda_trace import KernelScene, trace_hits
 from unityraytracer_tpu_torch.config import RenderConfig
@@ -89,3 +90,27 @@ def test_kernel_scene_pointers_and_device_errors():
         bad.spheres.radius = bad.spheres.radius.double()
         KernelScene.create(bad, accel)
     assert np.isfinite(ks.ground_enabled)
+
+
+def test_planes_and_state_entry_points_route_by_device():
+    # The byte-plane lookup and the path kernel's state output take their
+    # plain versions for CPU tensors and raise for a device without a kernel.
+    scene = fixtures.scene1()
+    ks = KernelScene.create(scene, build_cluster_accel(scene.triangles, 64))
+    H, W = ks.scene.skybox.shape[:2]
+    before = dict(_build.LAUNCHES)
+    planes = byte_planes(ks.scene.skybox_rgbe, H, W)
+    assert planes.dtype == torch.uint8 and tuple(planes.shape) == (H, 4 * W)
+    idx = torch.zeros(4, dtype=torch.int32)
+    rgb = env_lookup_planes(planes, idx, idx, W)
+    assert all(c.shape == (4,) for c in rgb)
+    ro = tuple(torch.zeros(4) + c for c in (0.0, 1.0, -10.0))
+    rd = tuple(torch.zeros(4) + c for c in (0.0, -1.0, 0.0))   # ground
+    out = path_trace(ks, ro, rd, torch.full((2, 5, 4), 0.5),
+                     RenderConfig(bounces=2), emit_state=True)
+    assert len(out) == 4 and tuple(out[3].shape) == (16, 4)
+    assert _build.LAUNCHES == before
+    meta = torch.empty((H, 4 * W), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        env_lookup_planes(meta, *(torch.empty(4, dtype=torch.int32,
+                                              device="meta"),) * 2, W)

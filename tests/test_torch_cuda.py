@@ -5,12 +5,15 @@ imports no JAX, so it also runs on a machine without it):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: the env kernel is bit-identical; the closest-hit kernel runs the
-plain version's MT97 in the same IEEE order (built with -fmad=false), so
+Tolerances: both env kernels are bit-identical; the closest-hit kernel runs
+the plain version's MT97 in the same IEEE order (built with -fmad=false), so
 winners agree except on exact-tie reorderings and t to 1e-5 relative; the
 path kernel's shading uses the CUDA exp2f/sqrtf/division, which torch's CUDA
 kernels share, so its nine output rows agree to 4 ulp, and to RMSE < 1e-3
-(the repo's image bar)."""
+(the repo's image bar), and its 16 resume-state rows bit for bit. The split
+frame equals the unsplit one to 1e-5 (only the order of the radiance
+additions differs); a chunked frame equals the spp-weighted sum of its
+sub-frames to rtol 1e-4, atol 5e-5."""
 
 from pathlib import Path
 
@@ -21,12 +24,17 @@ import torch
 from unityraytracer_tpu_torch import RenderConfig, Renderer, _build, rng
 from unityraytracer_tpu_torch.models import fixtures
 from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
-from unityraytracer_tpu_torch.ops.cuda_env import env_lookup, env_lookup_plain
+from unityraytracer_tpu_torch.ops import cuda_env
+from unityraytracer_tpu_torch.ops.cuda_env import (byte_planes, env_lookup,
+                                                   env_lookup_planes,
+                                                   env_lookup_planes_plain,
+                                                   env_lookup_plain)
 from unityraytracer_tpu_torch.ops.cuda_path import path_trace, path_trace_plain
 from unityraytracer_tpu_torch.ops.cuda_trace import (KernelScene,
                                                      closest_hit_plain,
                                                      trace_hits)
-from unityraytracer_tpu_torch.render import mega_inputs
+from unityraytracer_tpu_torch.render import (mega_inputs, render_frame,
+                                             split_capacity)
 from unityraytracer_tpu_torch.utils.image import rmse
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +125,100 @@ def test_golden_scene1_on_cuda(dev, tracer, mega):
     r = Renderer(fixtures.scene1(), fixtures.scene1_camera(64 / 48), cfg,
                  seed=123, device="cuda").step(8)
     assert rmse(r.image, golden) < 1e-3
+
+
+def test_env_planes_kernel_bit_identical(dev):
+    scene = fixtures.bench_scene(2000).to(dev)
+    H, W = scene.skybox.shape[:2]
+    planes = byte_planes(scene.skybox_rgbe, H, W)
+    g = torch.Generator(device=dev).manual_seed(4)
+    yn = torch.randint(0, H, (100_003,), generator=g, device=dev,
+                       dtype=torch.int32)
+    xn = torch.randint(0, W, (100_003,), generator=g, device=dev,
+                       dtype=torch.int32)
+    before = _build.LAUNCHES["env_planes"]
+    got = env_lookup_planes(planes, yn, xn, W)
+    assert _build.LAUNCHES["env_planes"] == before + 1
+    want = env_lookup_planes_plain(planes, yn, xn, W)
+    words = env_lookup_plain(scene.skybox_rgbe, yn, xn, W)
+    for a, b, c in zip(got, want, words):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
+def _scene1_rays(dev, cfg, seed):
+    s = fixtures.scene1()
+    scene = s.to(dev)
+    ks = KernelScene.create(scene, build_cluster_accel(s.triangles, 64), dev)
+    cam = fixtures.scene1_camera(cfg.width / cfg.height)
+    return scene, ks, cam, mega_inputs(scene, cam, rng.key(seed), cfg)
+
+
+@pytest.mark.parametrize("nb", [2, 4])
+def test_path_state_rows_bit_identical(dev, nb):
+    cfg = RenderConfig(width=64, height=48, bounces=4, tracer="pallas",
+                       rr_group="step")
+    _, ks, _, (ro, rd, uni, _, _, _) = _scene1_rays(dev, cfg, 5)
+    *rk, sk = path_trace(ks, ro, rd, uni[:nb], cfg, nb=nb, emit_state=True)
+    *rp, sp = path_trace_plain(ks, ro, rd, uni[:nb], cfg, nb=nb,
+                               emit_state=True)
+    _build.raise_on_overflow(dev)
+    assert sk.shape == sp.shape == (16, ro[0].shape[0])
+    assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+    dead = sk[9] == 0
+    assert 0 < dead.float().mean().item() < 1
+    assert (sk[6:9, dead] == 0).all() and (sk[10:16] == 0).all()
+    # Resuming from the state gives the plain version's second segment.
+    if nb == 2:
+        rest = dict(b0=2, nb=2, energy0=tuple(sk[6:9]), alive0=sk[9],
+                    emit_state=True)
+        a = path_trace(ks, tuple(sk[0:3]), tuple(sk[3:6]), uni[2:], cfg,
+                       **rest)
+        b = path_trace_plain(ks, tuple(sk[0:3]), tuple(sk[3:6]), uni[2:],
+                             cfg, **rest)
+        for x, y in zip(a, b):
+            x = torch.stack(x) if isinstance(x, tuple) else x
+            y = torch.stack(y) if isinstance(y, tuple) else y
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("sb,frac,overflows", [(2, 0.25, False),
+                                               (1, 1e-9, True)])
+def test_split_matches_unsplit_on_cuda(dev, sb, frac, overflows):
+    cfg = RenderConfig(width=64, height=48, bounces=5, tracer="pallas")
+    scene, ks, cam, (ro, rd, uni, _, _, _) = _scene1_rays(dev, cfg, 11)
+    *_, st = path_trace(ks, ro, rd, uni[:sb], cfg, nb=sb, emit_state=True)
+    alive, C = int(st[9].sum()), split_capacity(ro[0].shape[0], frac)
+    assert (alive > C) == overflows, (alive, C)
+    a = render_frame(scene, cfg, cam, rng.key(11), ks)
+    b = render_frame(scene, cfg.replace(split_bounce=sb, split_frac=frac),
+                     cam, rng.key(11), ks)
+    _build.raise_on_overflow(dev)
+    assert torch.isfinite(b).all()
+    torch.testing.assert_close(b, a, rtol=0, atol=1e-5)
+
+
+def test_spp_chunk_composition_on_cuda(dev):
+    cfg = RenderConfig(width=64, height=48, spp=5, bounces=3, tracer="pallas",
+                       spp_chunk=2)
+    scene, ks, cam, _ = _scene1_rays(dev, cfg.replace(spp=1), 0)
+    key = rng.key(9)
+    img = render_frame(scene, cfg, cam, key, ks)
+    sub2, sub1 = cfg.replace(spp=2, spp_chunk=None), \
+        cfg.replace(spp=1, spp_chunk=None)
+    want = (render_frame(scene, sub2, cam, rng.fold_in(key, 0), ks) * 0.4
+            + render_frame(scene, sub2, cam, rng.fold_in(key, 1), ks) * 0.4
+            + render_frame(scene, sub1, cam, rng.fold_in(key, 2), ks) * 0.2)
+    assert torch.isfinite(img).all() and img.max() > 0.05
+    torch.testing.assert_close(img, want, rtol=1e-4, atol=5e-5)
+
+
+def test_bf16_impl_frame_bit_identical(dev, monkeypatch):
+    cfg = RenderConfig(width=64, height=48, bounces=3, tracer="pallas")
+    scene, ks, cam, _ = _scene1_rays(dev, cfg, 0)
+    a = render_frame(scene, cfg, cam, rng.key(2), ks)
+    monkeypatch.setattr(cuda_env, "ENV_IMPL", "bf16")
+    before = _build.LAUNCHES["env_planes"]
+    b = render_frame(scene, cfg, cam, rng.key(2), ks)
+    assert _build.LAUNCHES["env_planes"] == before + 1
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))

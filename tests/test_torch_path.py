@@ -124,3 +124,76 @@ def test_path_plain_resume(inputs):
     for k in range(3):
         np.testing.assert_allclose(rad_h[k].numpy(), 0.5 * rad_1[k].numpy(),
                                    rtol=1e-6)
+
+
+# The resume state (emit_state) after two bounces: rows 0-2 ro, 3-5 rd,
+# 6-8 energy after roulette, 9 alive, 10-15 zero.
+
+@pytest.fixture(scope="module")
+def states(inputs):
+    ro, rd, uni = inputs
+    u2 = uni[:2].copy()
+    js = _scene(JBuilder, JMaterial, JP)
+    pa = prepare_pallas_accel(jax_accel(js.triangles, cluster_size=64,
+                                        use_native=False),
+                              js.materials, scene=js)
+    jout = jax_path_trace(pa, tuple(jnp.asarray(c) for c in ro),
+                          tuple(jnp.asarray(c) for c in rd),
+                          jnp.asarray(u2), JConfig(bounces=4, tracer="pallas"),
+                          interpret=True, nb=2, emit_state=True)
+    ts = _scene(SceneBuilder, Material, P)
+    ks = KernelScene.create(ts, build_cluster_accel(ts.triangles, 64))
+    tout = path_trace(ks, tuple(torch.from_numpy(c.copy()) for c in ro),
+                      tuple(torch.from_numpy(c.copy()) for c in rd),
+                      torch.from_numpy(u2), RenderConfig(bounces=4,
+                                                         tracer="pallas"),
+                      nb=2, emit_state=True)
+    jse = np.stack([np.asarray(c) for c in jout[1]], -1)
+    return np.asarray(jout[3]), tout[3].numpy(), jse
+
+
+def test_path_state_first_miss_rays_identical(states):
+    # A ray that misses at bounce 0 keeps its camera ray, with zero energy
+    # and alive 0, in both.
+    jst, tst, jse = states
+    first_miss = (jse == 1.0).all(-1)
+    assert first_miss.mean() > 0.05
+    np.testing.assert_array_equal(tst[:, first_miss], jst[:, first_miss])
+
+
+def test_path_state_matches_pallas_interpret(states):
+    # Elsewhere the state is the port's own float arithmetic: at most 0.5%
+    # of the rays may differ beyond 1e-4 (relative above 1), the documented
+    # Pluecker/MT97 near-tie flips and their later histories.
+    jst, tst, _ = states
+    assert tst.shape == jst.shape == (16, 1024) and tst.dtype == np.float32
+    differ = (np.abs(tst - jst) > 1e-4 * np.maximum(1.0, np.abs(jst))).any(0)
+    assert differ.mean() <= 0.005, np.flatnonzero(differ)
+    assert 0.05 < tst[9].mean() < 0.95      # some alive, some dead
+
+
+def test_path_state_dead_rays_have_zero_energy(states):
+    jst, tst, _ = states
+    for st in (tst, jst):
+        dead = st[9] == 0
+        assert set(np.unique(st[9])) <= {0.0, 1.0}
+        assert (st[6:9, dead] == 0).all()
+        np.testing.assert_array_equal(st[10:16], 0.0)
+
+
+def test_path_state_of_rays_dead_on_entry(inputs):
+    # Dead on entry: the ray stays as given, energy 0 and alive 0 after any
+    # nb >= 1 (the JAX kernel treats a dead ray as a miss).
+    ro, rd, uni = inputs
+    cfg = RenderConfig(bounces=4, tracer="pallas")
+    ts = _scene(SceneBuilder, Material, P)
+    ks = KernelScene.create(ts, build_cluster_accel(ts.triangles, 64))
+    tro = tuple(torch.from_numpy(c.copy()) for c in ro)
+    trd = tuple(torch.from_numpy(c.copy()) for c in rd)
+    half = tuple(torch.full_like(tro[0], 0.5) for _ in range(3))
+    dead = torch.zeros(len(tro[0]))
+    *_, st = path_trace(ks, tro, trd, torch.from_numpy(uni[2:3]), cfg, b0=2,
+                        nb=1, energy0=half, alive0=dead, emit_state=True)
+    np.testing.assert_array_equal(st[0:3].numpy(), np.stack(ro))
+    np.testing.assert_array_equal(st[3:6].numpy(), np.stack(rd))
+    assert (st[6:16] == 0).all()

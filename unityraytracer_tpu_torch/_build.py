@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"path": 0, "trace": 0, "env": 0}
+LAUNCHES = {"path": 0, "trace": 0, "env": 0, "env_planes": 0}
 
 _LIB = None
 BUILD_LOG = ""
@@ -104,9 +104,12 @@ def lib() -> ctypes.CDLL:
         so = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         so.urt_trace_hits.argtypes = [p, p, p, p, p, p, i, p, p]
-        so.urt_path_trace.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p]
+        so.urt_path_trace.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                      p, p]
         so.urt_env_lookup.argtypes = [p, p, p, p, i, p, i, p]
-        for fn in (so.urt_trace_hits, so.urt_path_trace, so.urt_env_lookup):
+        so.urt_env_lookup_planes.argtypes = [p, p, p, p, i, p, i, p]
+        for fn in (so.urt_trace_hits, so.urt_path_trace, so.urt_env_lookup,
+                   so.urt_env_lookup_planes):
             fn.restype = ctypes.c_int
         _LIB = so
     return _LIB

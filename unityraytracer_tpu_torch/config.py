@@ -7,10 +7,9 @@ hand-written CUDA kernels (``ops/cuda_trace.py``, ``ops/cuda_path.py``),
 which run for CUDA tensors; for CPU tensors the same entry points run their
 plain PyTorch versions.
 
-Knobs that the port does not implement yet raise ``NotImplementedError`` on
-a non-default value rather than being ignored: ``split_bounce``,
-``spp_chunk`` and ``dispatch_bands``. ``ray_bin_bounces`` only changes speed
-in the JAX package (its coherence sort is bit-identical), and is accepted and
+``split_bounce``/``split_frac``, ``spp_chunk`` and ``dispatch_bands`` keep
+the JAX package's meanings. ``ray_bin_bounces`` only changes speed in the
+JAX package (its coherence sort is bit-identical), and is accepted and
 ignored here: the CUDA kernels trace rays in their given order.
 """
 
@@ -44,7 +43,22 @@ class RenderConfig:
       rr_group: "ray" (one RR draw per ray) or "step" (one per 8x128 pixels).
       megakernel: with tracer="pallas", run every bounce in one path-kernel
         launch; False runs the bounce loop on the closest-hit kernel.
-      split_bounce/split_frac, spp_chunk, dispatch_bands: not ported yet.
+      split_bounce/split_frac: with the path kernel, and only when
+        0 < split_bounce < bounces, run bounces [0, split_bounce) at full
+        width, then the rest on a compact buffer of the surviving rays,
+        ceil(N * split_frac) slots rounded up to 1024; survivors past it
+        finish in a full-width remainder pass. Each ray keeps its own
+        uniform stream, so the image equals the unsplit one up to float
+        addition order (``render._path_trace_split``).
+      spp_chunk: when spp > spp_chunk, render the frame as sub-frames of
+        spp_chunk samples at keys fold_in(key, i), plus one remainder
+        sub-frame, averaged with exact spp weights. Bounds the per-launch
+        buffers; matches the unchunked frame in distribution, not bitwise.
+      dispatch_bands: n > 1 makes ``Renderer.step`` render each frame as n
+        horizontal bands (ceil(height / n) rows, a ragged last band) keyed
+        fold_in(frame key, band). Matches the whole frame in distribution.
+        With tracer="pallas" keep band heights multiples of 8 (the 8x16
+        pixel blocking).
       rng_impl: only "threefry2x32" (``rng.py``, bit-exact with jax.random).
         "rbg" bits depend on the XLA backend and cannot be reproduced.
     """
@@ -79,12 +93,6 @@ class RenderConfig:
             raise ValueError(
                 f"rng_impl={self.rng_impl!r}: the port reproduces only "
                 "threefry2x32 (rbg bits depend on the XLA backend)")
-        if self.split_bounce is not None:
-            raise NotImplementedError("split_bounce is not ported yet")
-        if self.spp_chunk is not None:
-            raise NotImplementedError("spp_chunk is not ported yet")
-        if self.dispatch_bands is not None and self.dispatch_bands > 1:
-            raise NotImplementedError("dispatch_bands is not ported yet")
         if self.rr_group not in ("ray", "step"):
             raise ValueError(f"unknown rr_group {self.rr_group!r}")
 

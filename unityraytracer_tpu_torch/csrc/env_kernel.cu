@@ -39,3 +39,46 @@ extern "C" int urt_env_lookup(const int* plane, const float* scale,
   }
   return (int)cudaGetLastError();
 }
+
+// Byte-plane sky tap: the same fetch and decode from the (H, 4W) byte-plane
+// table, one plane each for r, g, b and e (ops/cuda_env.py:byte_planes).
+//
+// Replaces the JAX package's ops/pallas_env.py:_env_kernel (launched by
+// _env_lookup through sample_skybox_rgbe_mxu with impl="bf16"). The TPU
+// kernel contracts a one-hot row matrix with the bf16 table on the MXU and
+// picks the column with a one-hot mask; both are exact, so each ray gets the
+// four bytes at (yn, p*W + xn). Here one thread per ray reads those four
+// bytes and decodes them through the same 256-entry scale table as the
+// packed-word kernel above; the (steps, 8, B) padded output of the TPU
+// kernel is its own layout and is not carried over: the output is (3, n).
+//
+// Bound on this card: memory. Four byte reads per ray from a table that
+// stays in L2 (512 KB for the 256x512 bench sky), 8 bytes of texel indices
+// in and 12 bytes of output per ray. This first version does nothing more.
+// CUDA C++ rather than Triton: it is a gather, and it builds into the same
+// library as the other kernels.
+__global__ void urt_env_planes_kernel(const unsigned char* __restrict__ tab,
+                                      const float* __restrict__ scale,
+                                      const int* __restrict__ yn,
+                                      const int* __restrict__ xn, int w,
+                                      float* __restrict__ out, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned char* t = tab + (size_t)yn[i] * 4 * w + xn[i];
+  const float sc = scale[t[3 * (size_t)w]];
+  out[i] = (float)t[0] * sc;
+  out[(size_t)n + i] = (float)t[w] * sc;
+  out[2 * (size_t)n + i] = (float)t[2 * (size_t)w] * sc;
+}
+
+extern "C" int urt_env_lookup_planes(const unsigned char* tab,
+                                     const float* scale, const int* yn,
+                                     const int* xn, int w, float* out, int n,
+                                     cudaStream_t stream) {
+  if (n > 0) {
+    const int threads = 256;
+    urt_env_planes_kernel<<<(n + threads - 1) / threads, threads, 0,
+                            stream>>>(tab, scale, yn, xn, w, out, n);
+  }
+  return (int)cudaGetLastError();
+}

@@ -21,6 +21,17 @@
 // device-memory latency on node and triangle reads). Paths also diverge in
 // length, so warps idle once most of their rays are dead. Nothing in this
 // first version addresses either: one thread per ray, no compaction.
+//
+// With a state pointer the kernel also writes the packed resume state of
+// pallas_path.py:324-332 (emit_state), which the bounce split gathers
+// into its compact buffer: rows 0-2 origin, 3-5 direction, 6-8 throughput
+// after roulette, 9 alive, 10-15 zero. The state is the JAX kernel's for
+// every ray, dead ones included. That kernel runs every bounce for every ray
+// and treats a dead ray as a miss (pallas_path.py:204, 283): its origin and
+// direction stay frozen and its throughput becomes exactly 0 at the next
+// bounce. This kernel leaves the loop instead, so it zeroes the throughput
+// of a path that ends before its last local bounce (a miss, or a death by
+// zero lobe or roulette with bounces still to come, or a ray dead on entry).
 
 #include "closest_hit.cuh"
 
@@ -29,14 +40,15 @@
 
 // ro, rd: (3, n); alive0: (n,) or null (all alive); energy0: (3, n) or null
 // (all ones); uni: (nb, 5, n); out: (9, n) rows radiance rgb, sky throughput
-// rgb, sky direction xyz.
+// rgb, sky direction xyz; state: (16, n) resume state, or null.
 __global__ void urt_path_kernel(SceneArgs s, const float* __restrict__ ro,
                                 const float* __restrict__ rd,
                                 const float* __restrict__ alive0,
                                 const float* __restrict__ energy0,
                                 const float* __restrict__ uni,
-                                float* __restrict__ out, int n, int b0, int nb,
-                                int bounces, int use_rr, int* err) {
+                                float* __restrict__ out,
+                                float* __restrict__ state, int n, int b0,
+                                int nb, int bounces, int use_rr, int* err) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float o[3], d[3], e[3];
@@ -51,7 +63,8 @@ __global__ void urt_path_kernel(SceneArgs s, const float* __restrict__ ro,
   float se[3] = {0.0f, 0.0f, 0.0f};
   float sd[3] = {0.0f, 1.0f, 0.0f};
 
-  for (int lb = 0; lb < nb && alive; ++lb) {
+  int lb = 0;
+  for (; lb < nb && alive; ++lb) {
     const int bg = b0 + lb;
     const float* u = uni + (size_t)lb * 5 * n + i;
     const float u_r = u[0];
@@ -143,23 +156,41 @@ __global__ void urt_path_kernel(SceneArgs s, const float* __restrict__ ro,
     }
   }
 
+  // A path that ended with local bounces to go: the JAX kernel's next bounce
+  // (a miss for a dead ray) would have set its throughput to 0. A miss
+  // breaks out before the increment, so lb < nb holds for it too.
+  if (!alive && lb < nb) e[0] = e[1] = e[2] = 0.0f;
+
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     out[(size_t)k * n + i] = rad[k];
     out[(size_t)(3 + k) * n + i] = se[k];
     out[(size_t)(6 + k) * n + i] = sd[k];
   }
+  if (state) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      state[(size_t)k * n + i] = o[k];
+      state[(size_t)(3 + k) * n + i] = d[k];
+      state[(size_t)(6 + k) * n + i] = e[k];
+    }
+    state[(size_t)9 * n + i] = alive ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 10; k < 16; ++k) state[(size_t)k * n + i] = 0.0f;
+  }
 }
 
 extern "C" int urt_path_trace(const SceneArgs* s, const float* ro,
                               const float* rd, const float* alive0,
                               const float* energy0, const float* uni,
-                              float* out, int n, int b0, int nb, int bounces,
-                              int use_rr, int* err, cudaStream_t stream) {
+                              float* out, float* state, int n, int b0, int nb,
+                              int bounces, int use_rr, int* err,
+                              cudaStream_t stream) {
   if (n > 0) {
     const int threads = 128;
     urt_path_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-        *s, ro, rd, alive0, energy0, uni, out, n, b0, nb, bounces, use_rr, err);
+        *s, ro, rd, alive0, energy0, uni, out, state, n, b0, nb, bounces,
+        use_rr, err);
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,8 @@ a torch bounce loop over ``closest_hit_plain`` with the kernel's shade
 written out op for op. Same inputs and outputs as the JAX function: rays as
 Vec3 of (N,), the five uniform rows per bounce (roulette, log2 u1,
 cos 2 pi u2, sin 2 pi u2, RR), and (radiance, sky throughput, sky direction)
-as Vec3 of (N,).
+as Vec3 of (N,); with ``emit_state`` also the packed (16, N) resume state
+that the bounce split (``render._path_trace_split``) gathers.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ _LOG2_1000 = float(np.float32(np.log2(1000.0)))
 
 
 def path_trace_plain(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
-                     b0: int = 0, nb: int = None, energy0=None, alive0=None):
+                     b0: int = 0, nb: int = None, energy0=None, alive0=None,
+                     emit_state: bool = False):
     """Plain torch version of the path kernel (see ``path_trace``)."""
     nb = cfg.bounces if nb is None else nb
     like = ro[0]
@@ -105,23 +107,34 @@ def path_trace_plain(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
             boost = torch.where(keep, 1.0 / p_surv, 0.0)
             energy = vec.scale(energy, boost)
             alive = alive & keep
+    if emit_state:     # the layout of pallas_path.py:324-332
+        state = torch.stack([*ro, *rd, *energy, alive.to(torch.float32),
+                             *(zero,) * 6])
+        return radiance, sky_e, sky_d, state
     return radiance, sky_e, sky_d
 
 
 def path_trace(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
-               b0: int = 0, nb: int = None, energy0=None, alive0=None):
+               b0: int = 0, nb: int = None, energy0=None, alive0=None,
+               emit_state: bool = False):
     """Trace + shade path bounces [b0, b0+nb) of all rays.
 
     ro/rd: Vec3 of (N,) rays. ``uni``: the (nb, 5, N) uniform rows of the
     local bounces. ``energy0``/``alive0``: optional (N,) start throughput
     (Vec3) and liveness. Returns (radiance, sky_energy, sky_dir), three Vec3
-    of (N,). The CUDA kernel runs for CUDA tensors, the plain version for
-    CPU tensors. A traversal overflow raises at the next
-    ``_build.raise_on_overflow``."""
+    of (N,), and with ``emit_state`` a fourth value, the (16, N) float32
+    resume state after the last local bounce: rows 0-2 ro, 3-5 rd, 6-8
+    energy after roulette, 9 alive, 10-15 zero. It is the JAX kernel's for
+    every ray: a dead ray keeps the ray of the bounce where it died, and its
+    energy is 0 once a bounce ran after its death (so always, for nb >= 1,
+    unless it died in the last one). The CUDA kernel runs for CUDA tensors,
+    the plain version for CPU tensors. A traversal overflow raises at the
+    next ``_build.raise_on_overflow``."""
     nb = cfg.bounces if nb is None else nb
     if ro[0].device.type == "cpu":
         return path_trace_plain(ks, ro, rd, uni, cfg, b0=b0, nb=nb,
-                                energy0=energy0, alive0=alive0)
+                                energy0=energy0, alive0=alive0,
+                                emit_state=emit_state)
     if ro[0].device.type != "cuda":
         raise ValueError(f"no path kernel for device {ro[0].device}")
     n = _check_rays(ks, *ro, *rd)
@@ -138,14 +151,18 @@ def path_trace(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
     if a1 is not None:
         _check_rays(ks, a1)
     out = torch.empty((9, n), dtype=torch.float32, device=ks.device)
+    state = (torch.empty((16, n), dtype=torch.float32, device=ks.device)
+             if emit_state else None)
     code = _build.lib().urt_path_trace(
         ctypes.byref(ks.args), ro3.data_ptr(), rd3.data_ptr(),
         a1.data_ptr() if a1 is not None else None,
         e3.data_ptr() if e3 is not None else None,
-        uni.data_ptr(), out.data_ptr(), n, b0, nb, cfg.bounces,
+        uni.data_ptr(), out.data_ptr(),
+        state.data_ptr() if emit_state else None, n, b0, nb, cfg.bounces,
         int(cfg.russian_roulette), _build.error_flag(ks.device).data_ptr(),
         _build.stream_ptr(ks.device))
     _build.LAUNCHES["path"] += 1
     _build.check(code, "path")
-    return (out[0], out[1], out[2]), (out[3], out[4], out[5]), \
+    ret = (out[0], out[1], out[2]), (out[3], out[4], out[5]), \
         (out[6], out[7], out[8])
+    return ret + (state,) if emit_state else ret

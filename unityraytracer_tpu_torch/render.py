@@ -6,9 +6,14 @@ The port of the JAX package's ``render.py``:
   bounced ``bounces`` times through a tracer (``"brute"`` or the
   closest-hit kernel), with wavefront parking and Russian roulette.
 * ``render_sample_mega``: the same frame through the path kernel — every
-  bounce in one launch, fed the same uniform rows.
+  bounce in one launch, fed the same uniform rows; with ``split_bounce``,
+  the deep bounces on a compact buffer of the surviving rays
+  (``_path_trace_split``).
+* ``render_frame``: the best path for a config, in ``spp_chunk`` sub-frames
+  when the config asks for them.
 * ``progressive_step``: the 1/(N+1) running mean.
-* ``Renderer``: the stateful frame loop with the JAX package's key chains.
+* ``Renderer``: the stateful frame loop with the JAX package's key chains,
+  whole frames or ``dispatch_bands`` bands.
 
 Every random number is drawn with ``rng.py`` from the same keys in the same
 layout as the JAX package (the block-native ``_draw_fn`` convention), so a
@@ -18,6 +23,7 @@ port render and a JAX render of one seed agree pixel for pixel.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import Callable, Optional
@@ -42,6 +48,10 @@ from .utils.image import tonemap_aces, write_png
 # Rays run in 8x16 pixel-block order on the megakernel path, as in the JAX
 # package (MEGA_BLOCKED); the uniforms follow the block-native convention.
 MEGA_BLOCKED = True
+# The bounce-split compact buffer is a multiple of this many rays, the JAX
+# kernel's step (pallas_trace.BLOCK), so both size it alike for any
+# split_frac and overflow in the same frames.
+SPLIT_BLOCK = 1024
 
 
 @dataclasses.dataclass
@@ -286,17 +296,107 @@ def mega_inputs(scene: Scene, camera: Camera, key, cfg: RenderConfig,
     return ro, rd, uni, su1, su2, from_blocks
 
 
+def split_capacity(n_rays: int, split_frac: float) -> int:
+    """Slots of the bounce-split compact buffer for ``n_rays`` rays:
+    ceil(n_rays * split_frac) rounded up to SPLIT_BLOCK, at least one block
+    and at most n_rays rounded up (the JAX package's rule)."""
+    B = SPLIT_BLOCK
+    C = max(B, int(math.ceil(n_rays * split_frac / B)) * B)
+    return min(C, -(-n_rays // B) * B)
+
+
+def _path_trace_split(scene: Scene, ks: KernelScene, ro, rd, uni, su1, su2,
+                      cfg: RenderConfig, sb: int):
+    """Bounce-split path kernel (the JAX package's ``_path_trace_split``):
+    full width for bounces [0, sb), then the deep bounces on a compact
+    buffer of the rays still alive.
+
+    The alive rays get cumsum destinations; one gather moves their packed
+    (16, N) resume state into the buffer, one more their remaining uniform
+    rows and sky uniforms, taken by original ray index so that each ray's
+    stream is the unsplit kernel's. The compact radiance, with its sky tap
+    taken in the compact domain, is scatter-added back. The returned sky
+    records hold only misses of bounces [0, sb): a ray that reached the
+    deep bounces has no record there, so the caller's full-width sky tap
+    stays right.
+
+    The buffer holds ``split_capacity(N, split_frac)`` rays. Survivors past
+    it (overflow) finish at full width in a remainder pass on their
+    original state. The JAX package skips that pass
+    with ``lax.cond`` when nothing overflows; here it always runs, since a
+    branch on the count would wait for the device every frame. With no
+    overflow every thread of it is dead on entry and leaves at once, and it
+    adds exact zeros.
+    """
+    N = ro[0].shape[0]
+    device = ro[0].device
+    C = split_capacity(N, cfg.split_frac)
+
+    rad1, se1, sd1, st = path_trace(ks, ro, rd, uni[:sb], cfg, nb=sb,
+                                    emit_state=True)
+    alive = st[9] > 0
+    ordv = torch.cumsum(alive.to(torch.int32), 0, dtype=torch.int32) - 1
+    # Slot C of a C+1 buffer takes the dead and overflow rays and is thrown
+    # away (JAX's scatter mode="drop"). Unwritten slots alias ray 0.
+    dest = torch.where(alive, torch.clamp_max(ordv, C), C).long()
+    idx = torch.zeros(C + 1, dtype=torch.int64, device=device).scatter_(
+        0, dest, torch.arange(N, dtype=torch.int64, device=device))[:C]
+    n_alive = alive.sum()
+    slot_live = torch.arange(C, device=device) < torch.clamp_max(n_alive, C)
+
+    stc = st.index_select(1, idx)             # one packed (16, C) gather
+    ro_c, rd_c, en_c = tuple(stc[0:3]), tuple(stc[3:6]), tuple(stc[6:9])
+    alive_c = torch.where(slot_live, stc[9], 0.0)
+
+    nb2 = cfg.bounces - sb
+    packed = [uni[sb:].reshape(nb2 * 5, N)]
+    if su1 is not None:
+        packed += [su1[None, :], su2[None, :]]
+    g = torch.cat(packed, 0).index_select(1, idx)
+    uni_c = g[:nb2 * 5].reshape(nb2, 5, C)
+
+    rad2, se2, sd2 = path_trace(ks, ro_c, rd_c, uni_c, cfg, b0=sb, nb=nb2,
+                                energy0=en_c, alive0=alive_c)
+    sky_c = _env_tap(scene, cfg, sd2,
+                     g[nb2 * 5] if su1 is not None else None,
+                     g[nb2 * 5 + 1] if su1 is not None else None)
+    rad_c = vec_ops.add(rad2, vec_ops.mul(se2, sky_c))
+    # In place into the first segment's radiance rows. Pad slots alias ray
+    # 0 and add exact zeros (slot_live masks them), so the atomics of the
+    # CUDA index_add give the same sums in any order.
+    radiance = tuple(rad1[k].index_add_(0, idx,
+                                        torch.where(slot_live, rad_c[k], 0.0))
+                     for k in range(3))
+
+    # Overflow: survivors past the buffer finish at full width on their
+    # original state and streams, so the image is the unsplit one in every
+    # regime.
+    overflow = alive & (ordv >= C)
+    rad3, se3, sd3 = path_trace(ks, tuple(st[0:3]), tuple(st[3:6]), uni[sb:],
+                                cfg, b0=sb, nb=nb2, energy0=tuple(st[6:9]),
+                                alive0=overflow)
+    sky3 = _env_tap(scene, cfg, sd3, su1, su2)
+    radiance = vec_ops.add(radiance, vec_ops.add(rad3, vec_ops.mul(se3, sky3)))
+    return radiance, se1, sd1
+
+
 def render_sample_mega(scene: Scene, accel, camera: Camera, key,
                        cfg: RenderConfig, row0: int = 0,
                        rows: Optional[int] = None):
     """``render_sample`` through the path kernel (``ops/cuda_path.py``):
-    the same uniform streams, every bounce in one launch. ``accel``: a
-    ``KernelScene`` or the scene's ``ClusterAccel``."""
+    the same uniform streams, every bounce in one launch (or two segments
+    with ``cfg.split_bounce``). ``accel``: a ``KernelScene`` or the scene's
+    ``ClusterAccel``."""
     ks = accel if isinstance(accel, KernelScene) else \
         KernelScene.create(scene, accel)
     ro, rd, uni, su1, su2, from_blocks = mega_inputs(scene, camera, key, cfg,
                                                      row0, rows)
-    radiance, sky_e, sky_d = path_trace(ks, ro, rd, uni, cfg)
+    sb = cfg.split_bounce
+    if sb is not None and 0 < sb < cfg.bounces:
+        radiance, sky_e, sky_d = _path_trace_split(scene, ks, ro, rd, uni,
+                                                   su1, su2, cfg, sb)
+    else:
+        radiance, sky_e, sky_d = path_trace(ks, ro, rd, uni, cfg)
     sky = _env_tap(scene, cfg, sky_d, su1, su2)
     radiance = vec_ops.add(radiance, vec_ops.mul(sky_e, sky))
     return torch.stack([from_blocks(c).mean(dim=0) for c in radiance], dim=-1)
@@ -305,10 +405,35 @@ def render_sample_mega(scene: Scene, accel, camera: Camera, key,
 def render_frame(scene: Scene, cfg: RenderConfig, camera: Camera, key,
                  accel=None, row0: int = 0, rows: Optional[int] = None):
     """One sample frame via the best path for cfg: the path kernel for
-    tracer="pallas" with megakernel, the bounce loop otherwise."""
+    tracer="pallas" with megakernel, the bounce loop otherwise.
+
+    With ``cfg.spp_chunk`` below ``cfg.spp`` the frame is the spp-weighted
+    sum of sub-frames of ``spp_chunk`` samples at ``fold_in(key, i)`` and a
+    remainder sub-frame at ``fold_in(key, n_full)``, rendered one after the
+    other: only the running image outlives a sub-frame, not its rays or
+    uniform rows. Chunking sits above the tracer dispatch, so it applies to
+    every tracer."""
+    if cfg.tracer == "pallas" and accel is None:
+        accel = build_accel(scene, cfg)
+    if isinstance(accel, ClusterAccel):
+        accel = KernelScene.create(scene, accel)
+    chunk = cfg.spp_chunk
+    if chunk and cfg.spp > chunk:
+        n_full, rem = divmod(cfg.spp, chunk)
+        sub = cfg.replace(spp=chunk, spp_chunk=None)
+        img = render_frame(scene, sub, camera, rng.fold_in(key, 0), accel,
+                           row0, rows)
+        for i in range(1, n_full):
+            img = img + render_frame(scene, sub, camera, rng.fold_in(key, i),
+                                     accel, row0, rows)
+        img = img * (chunk / cfg.spp)
+        if rem:
+            subr = cfg.replace(spp=rem, spp_chunk=None)
+            img = img + render_frame(scene, subr, camera,
+                                     rng.fold_in(key, n_full), accel, row0,
+                                     rows) * (rem / cfg.spp)
+        return img
     if cfg.tracer == "pallas" and cfg.megakernel:
-        if accel is None:
-            accel = build_accel(scene, cfg)
         return render_sample_mega(scene, accel, camera, key, cfg,
                                   row0=row0, rows=rows)
     tracer = get_tracer(scene, cfg, accel)
@@ -368,16 +493,37 @@ class Renderer:
                              self.accel)
         self.state = progressive_step(self.state, frame)
 
+    def _frame_banded(self, key) -> None:
+        """One frame as ``dispatch_bands`` horizontal bands: band ``bi``
+        renders at ``fold_in(fold_in(key, n_samples), bi)``."""
+        cfg = self.config
+        H = cfg.height
+        bh = -(-H // cfg.dispatch_bands)
+        fkey = rng.fold_in(key, self.state.n_samples)
+        bands = [render_frame(self.scene, cfg, self.camera,
+                              rng.fold_in(fkey, bi), self.accel, row0=row0,
+                              rows=min(bh, H - row0))
+                 for bi, row0 in enumerate(range(0, H, bh))]
+        self.state = progressive_step(self.state, torch.cat(bands, dim=0))
+
     def step(self, n_frames: int = 1, fused: bool = True) -> "Renderer":
         """Advance the progressive render by ``n_frames``.
 
         The key chains are the JAX package's: ``fused=True`` splits the key
         once for the block (its jitted fori_loop), ``fused=False`` once per
-        frame; each frame folds in its absolute sample index. Records
-        synchronized throughput in ``self.stats``, then raises if a kernel
-        overflowed its traversal stack in these frames."""
+        frame; each frame folds in its absolute sample index. A config with
+        ``dispatch_bands > 1`` renders each frame in bands and always takes
+        the per-frame chain, as the JAX package's banded step does, so
+        ``fused`` has no effect there. Records synchronized throughput in
+        ``self.stats``, then raises if a kernel overflowed its traversal
+        stack in these frames."""
         t0 = time.perf_counter()
-        if fused:
+        bands = self.config.dispatch_bands
+        if bands is not None and bands > 1:
+            for _ in range(n_frames):
+                self._key, sub = rng.split(self._key)
+                self._frame_banded(sub)
+        elif fused:
             self._key, sub = rng.split(self._key)
             for _ in range(n_frames):
                 self._frame(sub)
