@@ -9,20 +9,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. the kernel build from ``unityraytracer_tpu_torch/csrc`` (nvcc, sm_90a);
 3. each CUDA kernel against its plain PyTorch version on the same inputs:
    env bit-identical on 2,073,600 random texels of the bench sky; the
+   threefry kernels bit-identical to their plain versions (``urt_uniform``
+   on 2,073,600 and 10,368,000 counters; ``urt_bounce_rows`` at the main
+   path's 1920x1080 x 8 with ``rr_group="step"``, at the quality preset's
+   chunk of spp 5 x 10 bounces and at a band with ``row0 > 0``); the
    closest hit on 192x96 camera rays plus one scattered bounce of
    bench_scene(100_000) (winners agree on >= 99.99% of rays, t to 1e-5
    relative); the path kernel at 192x96 x 4 bounces (all nine output rows
-   within 4 ulp, radiance RMSE < 1e-3);
+   bit-identical, radiance RMSE < 1e-3);
    the closest-hit and path kernels also at the main path's 1920x1080 x 8
-   shape, held against their plain versions on a strided subset of rays;
+   shape, held against their plain versions on a strided subset of rays,
+   and their traversal counts (box and triangle tests per ray) there;
 4. the main path: ``Renderer(bench_scene(100_000), RenderConfig(1920, 1080,
    spp=1, bounces=8, tracer="pallas", wavefront=True, rr_group="step"),
    device="cuda")`` with bench.py's camera — a warm-up step, then timed
    steps whose launch counts must show the path and env kernels ran, with
    a finite image; then one frame through the bounce-loop entry point
    (megakernel=False), counted apart, which must launch the closest-hit
-   kernel; the main path's layers timed alone, and its device busy share
-   over a profiled window of three frames;
+   kernel; the main path's layers timed alone (camera rays, uniform rows,
+   path kernel, sky tap, compose), and its device busy share and device
+   launches per frame over a profiled window of three frames;
 5. the oracle gate: the main path at 192x96 x 4 bounces against
    tracer="brute" at the same seed, RMSE < 1e-3;
 6. the other configurations of the megakernel frame, each driven through
@@ -49,13 +55,18 @@ rows against the plain version's (bit for bit, at 192x96 x 4 and on the
 1080p x 8 subset with two bounces).
 
 The line before the last is a JSON object with each kernel's launches in
-the run of the path that uses it (the main path for the path and env
-kernels; 0 for the closest-hit kernel, whose count from the
+the run of the path that uses it (the main path for the path, env and
+threefry kernels; 0 for the closest-hit kernel, whose count from the
 megakernel=False frame stands under ``launches_megakernel_false``; the
 bf16 frame for the byte-plane kernel), the counts of every path under
-``launches_by_path``, its error against the plain version and both times;
-the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
-exits non-zero and prints no result.
+``launches_by_path``, its error against the plain version, both times
+(``shape`` and ``plain_shape`` say at what size), ``bound_ms``, the least
+time the card could take for the kernel's work at ``shape`` (the larger of
+its bytes over 3.35 TB/s and its operations over the peak rate of their
+type, ``bound_by`` naming which), and ``library_ms``, null: no single
+PyTorch call computes any of these functions. The last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
+and prints no result.
 """
 
 import json
@@ -75,6 +86,32 @@ MAIN = dict(width=1920, height=1080, spp=1, bounces=8, tracer="pallas",
 QUALITY = dict(width=1920, height=1080, spp=25, bounces=10, tracer="pallas",
                wavefront=True, rr_group="step", spp_chunk=5)
 SPLIT = dict(split_bounce=2, split_frac=0.125)
+# The threefry kernels' log2, cos and sin rows against torch's on the card,
+# in ulp (0: bit for bit).
+ROWS_ULP = 0.0
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): memory, and
+# float32 outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz). The
+# int32 rate is half the float32 lanes without the multiply-add's factor 2:
+# 132 SMs x 64 lanes x 1.98 GHz.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_I32 = 132 * 64 * 1.98e9
+# Operations counted per unit of work: one threefry draw (20 rounds of add,
+# rotate, xor, the key schedule, and the bits-to-float step), one slab test
+# of closest_hit.cuh (6 subtractions, 6 products, 12 min/max, the widening
+# product) and one MT97 test on precomputed edges (27 products and sums of
+# the cross and dot products, the division, 6 comparisons).
+OPS_DRAW = 80
+FLOP_BOX = 25
+FLOP_TRI = 49
+
+
+def bound(nbytes, ops=0.0, rate=PEAK_F32):
+    """(bound_ms, bound_by): the larger of the bytes' and the operations'
+    least times."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def log(*a):
@@ -96,6 +133,18 @@ def cuda_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def scene_bytes(ks) -> int:
+    """Bytes of what the closest-hit function reads of a KernelScene: its
+    traversal tables, normals and triangle materials, spheres and
+    materials."""
+    tr, s = ks.accel.triangles, ks.scene
+    parts = [*ks.tables.values(), tr.n0, tr.n1, tr.n2, tr.material_id,
+             s.spheres.center, s.spheres.radius, s.spheres.material_id,
+             s.materials.albedo, s.materials.specular, s.materials.emission,
+             s.materials.smoothness]
+    return sum(p.numel() * p.element_size() for p in parts)
 
 
 def card_line() -> str:
@@ -133,7 +182,9 @@ def main() -> int:
                                                          closest_hit_plain,
                                                          trace_hits)
     from unityraytracer_tpu_torch.ops import vec
-    from unityraytracer_tpu_torch.render import (RenderState, _env_tap,
+    from unityraytracer_tpu_torch.render import (RenderState, _camera_rays,
+                                                 _env_tap, bounce_rows,
+                                                 bounce_rows_plain,
                                                  mega_inputs,
                                                  progressive_step,
                                                  render_frame, render_sample,
@@ -196,10 +247,13 @@ def main() -> int:
     kernels["env"] = dict(
         route="cuda", source="unityraytracer_tpu_torch/csrc/env_kernel.cu",
         replaces="unityraytracer_tpu/ops/pallas_env.py:88",
-        max_abs_err=0.0, n=n_env,
+        max_abs_err=0.0, shape=[n_env], plain_shape=[n_env],
         ms=cuda_ms(lambda: env_lookup(scene.skybox_rgbe, yn, xn, W), 20, 3),
         plain_ms=cuda_ms(lambda: env_lookup_plain(scene.skybox_rgbe, yn, xn,
                                                   W), 20, 3))
+    # y and x read, rgb written, the packed table read once.
+    kernels["env"]["bound_ms"], kernels["env"]["bound_by"] = bound(
+        n_env * (8 + 12) + scene.skybox_rgbe.numel() * 4)
     log("env:", json.dumps(kernels["env"]))
 
     # 3a'. Byte-plane env kernel vs plain, bit-identical on the same texels
@@ -217,11 +271,89 @@ def main() -> int:
     kernels["env_planes"] = dict(
         route="cuda", source="unityraytracer_tpu_torch/csrc/env_kernel.cu",
         replaces="unityraytracer_tpu/ops/pallas_env.py:63",
-        max_abs_err=0.0, n=n_env,
+        max_abs_err=0.0, shape=[n_env], plain_shape=[n_env],
         ms=cuda_ms(lambda: env_lookup_planes(planes, yn, xn, W), 20, 3),
         plain_ms=cuda_ms(lambda: env_lookup_planes_plain(planes, yn, xn, W),
                          20, 3))
+    kernels["env_planes"]["bound_ms"], kernels["env_planes"]["bound_by"] = \
+        bound(n_env * (8 + 12) + planes.numel())
     log("env_planes:", json.dumps(kernels["env_planes"]))
+    del yn, xn
+
+    # 3a''. The threefry kernels against their plain versions (int64 torch
+    # hashes), bit for bit: one row, and the path kernel's uniform rows.
+    def bits_equal(a, b):
+        a = torch.as_tensor(a).float().contiguous()
+        b = torch.as_tensor(b).float().contiguous()
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    for n in (n_env, 5 * n_env):
+        key = rng.fold_in(rng.key(50), n)
+        got = rng.uniform(key, (n,), device=dev)
+        want = rng.uniform_plain(key, (n,), device=dev)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise AssertionError(f"threefry uniform kernel differs from its "
+                                 f"plain version on {n} counters")
+        log(f"uniform: {n} counters bit-identical")
+    del got, want
+    ukey = rng.key(51)
+    kernels["uniform"] = dict(
+        route="cuda", source="unityraytracer_tpu_torch/csrc/uniform_kernel.cu",
+        replaces="unityraytracer_tpu/render.py:465",
+        max_abs_err=0.0, shape=[n_env], plain_shape=[n_env],
+        ms=cuda_ms(lambda: rng.uniform(ukey, (n_env,), device=dev), 20, 3),
+        plain_ms=cuda_ms(lambda: rng.uniform_plain(ukey, (n_env,),
+                                                   device=dev), 5, 1))
+    kernels["uniform"]["bound_ms"], kernels["uniform"]["bound_by"] = bound(
+        n_env * 4, n_env * OPS_DRAW, PEAK_I32)
+    log("uniform:", json.dumps(kernels["uniform"]))
+
+    cfg_m = RenderConfig(**MAIN)
+    qsub = RenderConfig(**QUALITY).replace(spp=QUALITY["spp_chunk"],
+                                           spp_chunk=None)
+    H_m = cfg_m.height
+    row_cases = {   # (config, band rows, row0)
+        "main 1920x1080 x 8, rr_group step": (cfg_m, H_m, 0),
+        "quality chunk spp 5 x 10 bounces": (qsub, H_m, 0),
+        "band rows 216-431 of dispatch_bands=5": (cfg_m, 216, 216),
+    }
+    max_ulp, max_abs = {}, 0.0
+    for tag, (cfg_r, h_r, row0_r) in row_cases.items():
+        kb = rng.split(rng.fold_in(rng.key(52), row0_r), 3)[2]
+        got = bounce_rows(kb, cfg_r, h_r, row0_r, True, dev)
+        want = bounce_rows_plain(kb, cfg_r, h_r, row0_r, True, dev)
+        torch.cuda.synchronize()
+        exact = [bits_equal(got[:, r], want[:, r]) for r in range(5)]
+        d = (got - want).abs()
+        ulp = (d / torch.maximum(got.abs(), want.abs()).clamp_min(
+            1e-38).mul(2.0 ** -23)).amax(dim=(0, 2)).cpu().tolist()
+        for r in range(5):
+            max_ulp[r] = max(max_ulp.get(r, 0.0), ulp[r])
+        max_abs = max(max_abs, float(d.max()))
+        log(f"bounce_rows[{tag}]: {tuple(got.shape)}, rows bit-identical "
+            f"{exact}, max ulp per row {[f'{u:.2f}' for u in ulp]}")
+        # u_r and the roulette row must be bit-identical; the log2, cos and
+        # sin rows within ROWS_ULP (the CUDA math library on both sides).
+        if not (exact[0] and exact[4] and max(ulp[1:4]) <= ROWS_ULP):
+            raise AssertionError(f"uniform-row kernel vs plain ({tag}): "
+                                 f"exact {exact}, ulp {ulp}")
+    del got, want, d
+    kb = rng.split(rng.key(53), 3)[2]
+    n_m = cfg_m.num_rays
+    draws = n_m * (3 * cfg_m.bounces + (cfg_m.bounces - 3))
+    kernels["bounce_rows"] = dict(
+        route="cuda", source="unityraytracer_tpu_torch/csrc/uniform_kernel.cu",
+        replaces="unityraytracer_tpu/render.py:495",
+        max_abs_err=max_abs, max_ulp_by_row=max_ulp,
+        shape=[cfg_m.bounces, 5, n_m], plain_shape=[cfg_m.bounces, 5, n_m],
+        ms=cuda_ms(lambda: bounce_rows(kb, cfg_m, H_m, 0, True, dev), 20, 3),
+        plain_ms=cuda_ms(lambda: bounce_rows_plain(kb, cfg_m, H_m, 0, True,
+                                                   dev), 3, 1))
+    kernels["bounce_rows"]["bound_ms"], kernels["bounce_rows"]["bound_by"] = \
+        bound(cfg_m.bounces * 5 * n_m * 4, draws * OPS_DRAW, PEAK_I32)
+    log("bounce_rows:", json.dumps(kernels["bounce_rows"]))
 
     # 3b. Closest-hit kernel vs plain.
     def camera_rays(cam, width, height, seed):
@@ -288,18 +420,38 @@ def main() -> int:
                    smoothness=hm.smoothness[sub], prim=hm.prim[sub])
     _build.raise_on_overflow(dev)
     err_hits = max(err_hits, compare_hits(hks, hps, "1080p subset"))
+    # Traversal counts on the 1080p camera rays; the counts output changes
+    # no hit.
+    n_m = rom[0].shape[0]
+    cnt = torch.empty((2, n_m), dtype=torch.int32, device=dev)
+    hc = trace_hits(ks, rom, rdm, counts=cnt)
+    _build.raise_on_overflow(dev)
+    if not (torch.equal(hc.prim, hm.prim) and torch.equal(hc.t, hm.t)):
+        raise AssertionError("closest-hit kernel: the counts output changed "
+                             "its hits")
+    tests = cnt.sum(dim=1, dtype=torch.int64).cpu().tolist()
+    trav = {"trace_1080p_camera_rays": dict(
+        rays=n_m, box_tests=tests[0], tri_tests=tests[1],
+        box_per_ray=tests[0] / n_m, tri_per_ray=tests[1] / n_m,
+        exhaustive_tri_per_ray=ks.accel.triangles.count)}
+    log("traversal counts:", json.dumps(trav))
     kernels["trace"] = dict(
         route="cuda", source="unityraytracer_tpu_torch/csrc/trace_kernel.cu",
         replaces="unityraytracer_tpu/ops/pallas_trace.py:1109",
-        max_abs_err=err_hits, n=ro[0].shape[0], ms=ms_small,
-        plain_ms=plain_ms,
-        ms_1080p=cuda_ms(lambda: trace_hits(ks, rom, rdm), 5, 1))
+        max_abs_err=err_hits, shape=[n_m], plain_shape=[ro[0].shape[0]],
+        ms=cuda_ms(lambda: trace_hits(ks, rom, rdm), 5, 1),
+        plain_ms=plain_ms, ms_small=ms_small)
+    # Rays and the alive row read, 14 rows and the winner written, the
+    # scene's tables read once; the box and MT97 tests this run made.
+    kernels["trace"]["bound_ms"], kernels["trace"]["bound_by"] = bound(
+        n_m * (28 + 56 + 4) + scene_bytes(ks),
+        tests[0] * FLOP_BOX + tests[1] * FLOP_TRI)
     log("trace:", json.dumps(kernels["trace"]))
 
     # 3c. Path kernel vs plain on the render's own rays and uniform rows:
     # all nine output rows (radiance, sky throughput, sky direction). Both
     # run the same MT97, winner rules and float32 shading (-fmad=false), so
-    # every value must agree to 4 ulp; the radiance must also meet the
+    # every value must agree bit for bit; the radiance must also meet the
     # repo's image bar, RMSE < 1e-3.
     def path_check(cfg, cam, key, stride, tag):
         ro, rd, uni, _, _, _ = mega_inputs(scene, cam, key, cfg)
@@ -314,10 +466,12 @@ def main() -> int:
         diff = np.abs(a - b)
         ulps = float((diff / np.spacing(np.abs(b))).max())
         err = rmse(a[:3], b[:3])
+        same = bool((a.view(np.uint32) == b.view(np.uint32)).all())
         log(f"path[{tag}]: {ro[0].shape[0]} rays (plain on {idx.numel()}), "
             f"radiance RMSE {err:.3e}, max abs over 9 rows "
-            f"{float(diff.max()):.3e}, max {ulps:.1f} ulp")
-        if not (err < 1e-3 and ulps <= 4.0):
+            f"{float(diff.max()):.3e}, max {ulps:.1f} ulp, bit-identical "
+            f"{same}")
+        if not (err < 1e-3 and same):
             raise AssertionError(f"path kernel vs plain ({tag}): RMSE {err}, "
                                  f"{ulps} ulp")
         return ro, rd, uni, uni_s, sel, float(diff.max())
@@ -349,16 +503,40 @@ def main() -> int:
     state_check(cfg_s, cam_small, rng.key(7), 1, 4, "192x96x4")
     ms_small = cuda_ms(lambda: path_trace(ks, ro, rd, uni, cfg_s), 10, 2)
     plain_ms = cuda_ms(lambda: path_trace_plain(ks, ro, rd, uni, cfg_s), 2, 1)
-    cfg_m = RenderConfig(**MAIN)
     rom, rdm, unim, _, _, err_m = path_check(cfg_m, cam_main, rng.key(8), 97,
                                              "1080p x 8 subset")
     state_check(cfg_m, cam_main, rng.key(8), 97, 2, "1080p x 8 subset")
+    # Traversal counts over the 8 bounces of the 1080p frame; the counts
+    # output changes none of the nine rows.
+    n_m = rom[0].shape[0]
+    cnt = torch.empty((2, n_m), dtype=torch.int32, device=dev)
+    with_c = path_trace(ks, rom, rdm, unim, cfg_m, counts=cnt)
+    without = path_trace(ks, rom, rdm, unim, cfg_m)
+    _build.raise_on_overflow(dev)
+    if not all(bits_equal(torch.stack(a), torch.stack(b))
+               for a, b in zip(with_c, without)):
+        raise AssertionError("path kernel: the counts output changed its "
+                             "rows")
+    tests = cnt.sum(dim=1, dtype=torch.int64).cpu().tolist()
+    trav["path_1080p_x8"] = dict(
+        rays=n_m, box_tests=tests[0], tri_tests=tests[1],
+        box_per_ray=tests[0] / n_m, tri_per_ray=tests[1] / n_m,
+        max_tri_per_ray=int(cnt[1].max()))
+    log("traversal counts:", json.dumps(trav["path_1080p_x8"]))
+    del with_c, without, cnt
     kernels["path"] = dict(
         route="cuda", source="unityraytracer_tpu_torch/csrc/path_kernel.cu",
         replaces="unityraytracer_tpu/ops/pallas_path.py:59",
-        max_abs_err=max(err_path, err_m), n=ro[0].shape[0], ms=ms_small,
-        plain_ms=plain_ms,
-        ms_1080p=cuda_ms(lambda: path_trace(ks, rom, rdm, unim, cfg_m), 5, 1))
+        max_abs_err=max(err_path, err_m), shape=[cfg_m.bounces, 5, n_m],
+        plain_shape=[cfg_s.bounces, 5, ro[0].shape[0]],
+        ms=cuda_ms(lambda: path_trace(ks, rom, rdm, unim, cfg_m), 5, 1),
+        plain_ms=plain_ms, ms_small=ms_small, traversal=trav)
+    # Rays and uniform rows read, nine rows written, the scene's tables
+    # read once; the box and MT97 tests this run made (the shading's ~150
+    # FLOP a bounce are left out, so the bound errs low).
+    kernels["path"]["bound_ms"], kernels["path"]["bound_by"] = bound(
+        n_m * (24 + cfg_m.bounces * 20 + 36) + scene_bytes(ks),
+        tests[0] * FLOP_BOX + tests[1] * FLOP_TRI)
     log("path:", json.dumps(kernels["path"]))
     del rom, rdm, unim, hm
 
@@ -377,7 +555,7 @@ def main() -> int:
     img = r.image
     if not (np.isfinite(img).all() and img.max() > 0):
         raise AssertionError("main path produced a non-finite or black image")
-    for k in ("path", "env"):
+    for k in ("path", "env", "uniform", "bounce_rows"):
         if launches[k] < 1:
             raise AssertionError(f"kernel {k!r} never launched on the main "
                                  f"path: {launches}")
@@ -407,6 +585,7 @@ def main() -> int:
     fkey = rng.key(11)
     ro, rd, uni, su1, su2, from_blocks = mega_inputs(scene, cam_main, fkey,
                                                      cfg_m)
+    k_bounce = rng.split(fkey, 3)[2]
     rad, se, sd = path_trace(r.accel, ro, rd, uni, cfg_m)
     sky = _env_tap(scene, cfg_m, sd, su1, su2)
 
@@ -416,10 +595,13 @@ def main() -> int:
         return progressive_step(r.state, img)
 
     layers = {
-        "rays_and_uniform_rows": cuda_ms(
-            lambda: mega_inputs(scene, cam_main, fkey, cfg_m), 3),
-        "one_threefry_uniform_2M": cuda_ms(
-            lambda: rng.uniform(fkey, (cfg_m.num_rays,), device=dev), 5),
+        "camera_rays": cuda_ms(lambda: _camera_rays(
+            cam_main, fkey, cfg_m, H_m, cfg_m.width, 1, 0, True,
+            lambda a: a, dev), 10, 2),
+        "uniform_rows": cuda_ms(lambda: bounce_rows(
+            k_bounce, cfg_m, H_m, 0, True, dev), 10, 2),
+        "mega_inputs_whole": cuda_ms(
+            lambda: mega_inputs(scene, cam_main, fkey, cfg_m), 10, 2),
         "path_kernel": cuda_ms(lambda: path_trace(r.accel, ro, rd, uni, cfg_m),
                                5),
         "sky_tap": cuda_ms(lambda: _env_tap(scene, cfg_m, sd, su1, su2), 5),
@@ -446,7 +628,8 @@ def main() -> int:
             busy_us += e - max(s, reach)
             reach = e
     log(f"profiled window: 3 frames, wall {wall_ms:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms over {len(spans)} device events, busy share "
+        f"{busy_us / 1e3:.3f} ms over {len(spans)} device events "
+        f"({len(spans) / 3:.1f} a frame), busy share "
         f"{busy_us / 1e3 / wall_ms:.4f}")
 
     # 5. Oracle gate at 192x96 x 4 bounces, and the alive fraction at 8.
@@ -472,12 +655,6 @@ def main() -> int:
             _build.LAUNCHES[k] = 0
         out = fn()
         return out, dict(_build.LAUNCHES)
-
-    def bits_equal(a, b):
-        a = torch.as_tensor(a).float().contiguous()
-        b = torch.as_tensor(b).float().contiguous()
-        return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                                  b.view(torch.int32))
 
     # 6a. The quality preset.
     qcfg = RenderConfig(**QUALITY)
@@ -508,13 +685,14 @@ def main() -> int:
         f"({q_rays / 1e6:.1f}M slots a frame), peak device memory "
         f"{peak_gb:.3f} GiB; launches a frame {q_launch[-1]}")
     # Where one chunk's time goes (CUDA events, each layer alone).
-    qsub = qcfg.replace(spp=qcfg.spp_chunk, spp_chunk=None)
     qkey = rng.key(13)
     ro, rd, uni, su1, su2, _ = mega_inputs(rq.scene, cam_q, qkey, qsub)
     _, _, sd = path_trace(rq.accel, ro, rd, uni, qsub)
     q_layers = {
         "rays_and_uniform_rows": cuda_ms(
-            lambda: mega_inputs(rq.scene, cam_q, qkey, qsub), 2),
+            lambda: mega_inputs(rq.scene, cam_q, qkey, qsub), 3),
+        "uniform_rows": cuda_ms(lambda: bounce_rows(
+            rng.split(qkey, 3)[2], qsub, qsub.height, 0, True, dev), 3),
         "path_kernel": cuda_ms(lambda: path_trace(rq.accel, ro, rd, uni,
                                                   qsub), 3),
         "sky_tap": cuda_ms(lambda: _env_tap(rq.scene, qsub, sd, su1, su2),
@@ -681,7 +859,10 @@ def main() -> int:
     log(card)
     keys = ("route", "source", "replaces", "launches",
             "launches_megakernel_false", "launches_by_path", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "plain_shape")
+    for v in kernels.values():
+        v["library_ms"] = None     # no single PyTorch call computes these
     log(json.dumps({"kernels": [
         {"name": k, **{f: v[f] for f in keys if f in v}}
         for k, v in kernels.items()]}))

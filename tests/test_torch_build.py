@@ -37,7 +37,8 @@ def test_library_name_tracks_sources():
     assert re.fullmatch(r"liburt_kernels_[0-9a-f]{16}\.so", p.name)
     assert p == _build.library_path()
     assert {s.name for s in _build.CSRC.glob("*.cu")} == {
-        "env_kernel.cu", "path_kernel.cu", "trace_kernel.cu"}
+        "env_kernel.cu", "path_kernel.cu", "trace_kernel.cu",
+        "uniform_kernel.cu"}
 
 
 def test_cpu_tensors_never_touch_the_kernels():
@@ -77,7 +78,9 @@ def test_kernel_scene_pointers_and_device_errors():
     args = ks.args
     assert args.n_spheres == scene.num_spheres
     assert args.n_clusters == accel.num_clusters and args.cluster_size == 64
-    assert args.tri_v0 == ks.accel.triangles.v0.data_ptr()
+    assert args.tris == ks.tables["tris"].data_ptr()
+    assert args.nodes == ks.tables["nodes"].data_ptr()
+    assert args.tri_n0 == ks.accel.triangles.n0.data_ptr()
     assert args.ground_mat == int(scene.ground_material_id)
     meta = tuple(torch.empty(4, device="meta") for _ in range(3))
     with pytest.raises(ValueError):

@@ -5,12 +5,15 @@ imports no JAX, so it also runs on a machine without it):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: both env kernels are bit-identical; the closest-hit kernel runs
+Tolerances: both env kernels and both threefry kernels are bit-identical
+(the uniform rows' log2, cos and sin are the CUDA math library's, as in
+torch's CUDA kernels); the closest-hit kernel runs
 the plain version's MT97 in the same IEEE order (built with -fmad=false), so
-winners agree except on exact-tie reorderings and t to 1e-5 relative; the
-path kernel's shading uses the CUDA exp2f/sqrtf/division, which torch's CUDA
-kernels share, so its nine output rows agree to 4 ulp, and to RMSE < 1e-3
-(the repo's image bar), and its 16 resume-state rows bit for bit. The split
+winners agree except on exact-tie reorderings and t to 1e-5 relative, and
+its box and triangle test counts equal those of the per-ray traversal twin
+(tests/torch_twins.py); the path kernel's shading uses the CUDA
+exp2f/sqrtf/division, which torch's CUDA kernels share, so its nine output
+rows and its 16 resume-state rows are bit-identical. The split
 frame equals the unsplit one to 1e-5 (only the order of the radiance
 additions differs); a chunked frame equals the spp-weighted sum of its
 sub-frames to rtol 1e-4, atol 5e-5."""
@@ -33,7 +36,8 @@ from unityraytracer_tpu_torch.ops.cuda_path import path_trace, path_trace_plain
 from unityraytracer_tpu_torch.ops.cuda_trace import (KernelScene,
                                                      closest_hit_plain,
                                                      trace_hits)
-from unityraytracer_tpu_torch.render import (mega_inputs, render_frame,
+from unityraytracer_tpu_torch.render import (bounce_rows, bounce_rows_plain,
+                                             mega_inputs, render_frame,
                                              split_capacity)
 from unityraytracer_tpu_torch.utils.image import rmse
 
@@ -113,7 +117,7 @@ def test_path_kernel_matches_plain(dev):
         y = torch.stack(b, -1).cpu().numpy()
         assert np.isfinite(x).all()
         assert rmse(x, y) < 1e-3
-        assert (np.abs(x - y) <= 4 * np.spacing(np.abs(y))).all()
+        np.testing.assert_array_equal(x.view(np.uint32), y.view(np.uint32))
 
 
 @pytest.mark.parametrize("tracer,mega", [("brute", True), ("pallas", True),
@@ -222,3 +226,67 @@ def test_bf16_impl_frame_bit_identical(dev, monkeypatch):
     b = render_frame(scene, cfg, cam, rng.key(2), ks)
     assert _build.LAUNCHES["env_planes"] == before + 1
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(1,), (1000,), (2_073_601,), (5, 135, 16)])
+def test_uniform_kernel_bit_identical(dev, shape):
+    key = rng.fold_in(rng.key(12), shape[0])
+    before = _build.LAUNCHES["uniform"]
+    got = rng.uniform(key, shape, device=dev)
+    assert _build.LAUNCHES["uniform"] == before + 1
+    want = rng.uniform_plain(key, shape, device=dev)
+    assert got.shape == want.shape == shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# (width, height, rows, row0, spp, bounces, rr_group, russian_roulette)
+ROWS = {
+    "main_step": (64, 48, None, 0, 1, 8, "step", True),
+    "unblocked_ray": (60, 44, None, 0, 2, 5, "ray", True),
+    "band_step": (256, 64, 16, 40, 1, 6, "step", True),
+    "spp5_ten_bounces": (64, 32, None, 0, 5, 10, "step", True),
+    "rr_off": (32, 16, None, 0, 1, 4, "ray", False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROWS))
+def test_bounce_rows_kernel_bit_identical(dev, case):
+    W, H, rows, row0, spp, nb, group, rr = ROWS[case]
+    cfg = RenderConfig(width=W, height=H, spp=spp, bounces=nb,
+                       tracer="pallas", rr_group=group, russian_roulette=rr)
+    h = H if rows is None else rows
+    blocked = h % 8 == 0 and W % 16 == 0
+    k_bounce = rng.split(rng.key(31), 3)[2]
+    before = _build.LAUNCHES["bounce_rows"]
+    got = bounce_rows(k_bounce, cfg, h, row0, blocked, dev)
+    assert _build.LAUNCHES["bounce_rows"] == before + 1
+    want = bounce_rows_plain(k_bounce, cfg, h, row0, blocked, dev)
+    assert got.shape == want.shape == (nb, 5, spp * h * W)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_trace_counts_match_the_twin(dev):
+    from torch_twins import SceneTwin, closest_hit_twin
+    s = fixtures.bench_scene(2000)
+    ks = KernelScene.create(s, build_cluster_accel(s.triangles, 64), dev)
+    ro, rd = _rays(dev, 3000, 5)
+    counts = torch.empty((2, 3000), dtype=torch.int32, device=dev)
+    hk = trace_hits(ks, ro, rd, counts=counts)
+    _build.raise_on_overflow(dev)
+    tw = SceneTwin(ks)
+    o = torch.stack(ro, 1).cpu().numpy()
+    d = torch.stack(rd, 1).cpu().numpy()
+    c = counts.cpu().numpy()
+    for i in range(0, 3000, 15):
+        prim, _, nbox, ntri = closest_hit_twin(tw, o[i], d[i])
+        assert (prim, nbox, ntri) == (int(hk.prim[i]), c[0, i], c[1, i]), i
+    # One bounce of the path kernel makes the same tests; the counts output
+    # changes none of its results.
+    cfg = RenderConfig(bounces=1, tracer="pallas")
+    uni = torch.full((1, 5, 3000), 0.5, device=dev)
+    pc = torch.empty_like(counts)
+    a = path_trace(ks, ro, rd, uni, cfg, counts=pc)
+    b = path_trace(ks, ro, rd, uni, cfg)
+    assert torch.equal(pc, counts)
+    for x, y in zip(a, b):
+        assert torch.equal(torch.stack(x), torch.stack(y))

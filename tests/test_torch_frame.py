@@ -73,7 +73,7 @@ def _manual_bands(scene, cam, cfg, seed, n_frames):
     """The banded key chain written out: per frame split the key, fold in
     the sample index, then the band index; concatenate; running mean."""
     key = rng.key(seed)
-    state = RenderState.create(cfg.width, cfg.height)
+    state = RenderState.create(cfg.width, cfg.height, device="cpu")
     bh = -(-cfg.height // cfg.dispatch_bands)
     for _ in range(n_frames):
         key, sub = rng.split(key)
@@ -91,7 +91,7 @@ def test_banded_step_is_the_manual_composition(tracer):
     # 48 rows over 5 bands: four of 10 rows and a ragged last one of 8.
     cfg = RenderConfig(**dict(BANDED, tracer=tracer))
     scene, cam = tfix.scene1(), tfix.scene1_camera(16 / 48)
-    r = Renderer(scene, cam, cfg, seed=3).step(2)
+    r = Renderer(scene, cam, cfg, seed=3, device="cpu").step(2)
     want = _manual_bands(scene.to("cpu"), cam, cfg, 3, 2)
     assert r.sample_count == 2 and np.isfinite(r.image).all()
     np.testing.assert_array_equal(r.image, want)
@@ -101,8 +101,8 @@ def test_banded_step_takes_the_per_frame_chain():
     # Documented: fused has no effect on a banded step.
     cfg = RenderConfig(**dict(BANDED, tracer="brute"))
     scene, cam = tfix.scene1(), tfix.scene1_camera(16 / 48)
-    a = Renderer(scene, cam, cfg, seed=4).step(2, fused=True)
-    b = Renderer(scene, cam, cfg, seed=4).step(2, fused=False)
+    a = Renderer(scene, cam, cfg, seed=4, device="cpu").step(2, fused=True)
+    b = Renderer(scene, cam, cfg, seed=4, device="cpu").step(2, fused=False)
     np.testing.assert_array_equal(a.image, b.image)
     np.testing.assert_array_equal(a._key, b._key)
 
@@ -112,7 +112,7 @@ def test_banded_matches_jax_banded_brute():
     j = JRenderer(jfix.scene1(), jfix.scene1_camera(16 / 48), JConfig(**kw),
                   seed=3).step(2).image
     t = Renderer(tfix.scene1(), tfix.scene1_camera(16 / 48),
-                 RenderConfig(**kw), seed=3).step(2).image
+                 RenderConfig(**kw), seed=3, device="cpu").step(2).image
     assert rmse(t, j) < 1e-5
 
 
@@ -122,11 +122,11 @@ def test_bands_chosen_after_init_step():
     # the config at each step.
     cfg = RenderConfig(width=16, height=16, spp=1, bounces=2, tracer="brute")
     scene, cam = tfix.scene1(), tfix.scene1_camera(1.0)
-    r = Renderer(scene, cam, cfg, seed=8).step(1)
+    r = Renderer(scene, cam, cfg, seed=8, device="cpu").step(1)
     r.resize(16, 48)
     r.config = r.config.replace(dispatch_bands=5)
     r.step(2)
     assert r.sample_count == 2 and r.image.shape == (48, 16, 3)
-    want = Renderer(scene, cam, r.config, seed=8)
+    want = Renderer(scene, cam, r.config, seed=8, device="cpu")
     want._key = rng.split(rng.key(8))[0]     # the key after the first step
     np.testing.assert_array_equal(r.image, want.step(2).image)

@@ -8,9 +8,12 @@ the JAX package's brute images of one seed — the random streams are
 bit-identical (test_torch_rng.py), so only float rounding of the
 transcendental functions separates them."""
 
+import inspect
+
 import numpy as np
 import jax
 import pytest
+import torch
 
 from unityraytracer_tpu import Renderer as JRenderer
 from unityraytracer_tpu import RenderConfig as JConfig
@@ -19,8 +22,8 @@ from unityraytracer_tpu.render import get_tracer as jax_get_tracer
 from unityraytracer_tpu.render import render_sample as jax_render_sample
 from unityraytracer_tpu_torch import RenderConfig, Renderer, rng
 from unityraytracer_tpu_torch.models import fixtures as tfix
-from unityraytracer_tpu_torch.render import (get_tracer, render_frame,
-                                             render_sample)
+from unityraytracer_tpu_torch.render import (RenderState, get_tracer,
+                                             render_frame, render_sample)
 from unityraytracer_tpu_torch.utils.image import rmse
 
 GOLDEN = dict(width=64, height=48, spp=2, bounces=3, tracer="brute",
@@ -37,7 +40,7 @@ def golden():
 def test_golden_scene1(golden, tracer, mega):
     cfg = RenderConfig(**dict(GOLDEN, tracer=tracer, megakernel=mega))
     r = Renderer(tfix.scene1(), tfix.scene1_camera(aspect=64 / 48), cfg,
-                 seed=123).step(8)
+                 seed=123, device="cpu").step(8)
     assert r.sample_count == 8
     err = rmse(r.image, golden)
     assert err < 1e-3, (tracer, mega, err)
@@ -48,7 +51,7 @@ def test_brute_matches_jax_brute_same_seed():
     j = JRenderer(jfix.scene1(), jfix.scene1_camera(aspect=64 / 48), cfg,
                   seed=123).step(8).image
     t = Renderer(tfix.scene1(), tfix.scene1_camera(aspect=64 / 48),
-                 RenderConfig(**GOLDEN), seed=123).step(8).image
+                 RenderConfig(**GOLDEN), seed=123, device="cpu").step(8).image
     err = rmse(t, j)
     assert err <= 1e-5, err
 
@@ -75,7 +78,7 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
     path = jr.save_state(str(tmp_path / "ckpt"))
     jr.step(1).step(1, fused=False)
     tr = Renderer(tfix.scene1(), tfix.scene1_camera(32 / 24),
-                  RenderConfig(**kw), seed=0).load_state(path)
+                  RenderConfig(**kw), seed=0, device="cpu").load_state(path)
     assert tr.sample_count == 2
     tr.step(1).step(1, fused=False)
     assert tr.sample_count == jr.sample_count == 4
@@ -109,7 +112,8 @@ def test_deep_bounce_paths_agree(rr_group):
 
 def test_renderer_lifecycle(tmp_path):
     cfg = RenderConfig(width=16, height=8, spp=1, bounces=2, tracer="pallas")
-    r = Renderer(tfix.scene1(), tfix.scene1_camera(2.0), cfg, seed=3)
+    r = Renderer(tfix.scene1(), tfix.scene1_camera(2.0), cfg, seed=3,
+                 device="cpu")
     r.step(2)
     assert r.sample_count == 2 and np.isfinite(r.image).all()
     assert r.stats["frames"] == 2 and r.stats["mrays_per_sec"] > 0
@@ -124,11 +128,13 @@ def test_renderer_lifecycle(tmp_path):
     assert open(out, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
     p = r.save_state(str(tmp_path / "s"))
     r2 = Renderer(tfix.sample_scene(), tfix.scene1_camera(2.0),
-                  cfg.replace(width=32, height=16), seed=9).load_state(p)
+                  cfg.replace(width=32, height=16), seed=9,
+                  device="cpu").load_state(p)
     np.testing.assert_array_equal(r2.image, r.image)
     np.testing.assert_array_equal(r2._key, r._key)
     with pytest.raises(ValueError):   # 32x16 checkpoint, 16x8 config
-        Renderer(tfix.scene1(), tfix.scene1_camera(2.0), cfg).load_state(p)
+        Renderer(tfix.scene1(), tfix.scene1_camera(2.0), cfg,
+                 device="cpu").load_state(p)
 
 
 @pytest.mark.parametrize("kw,exc", [
@@ -145,3 +151,19 @@ def test_unported_tracers_raise():
                       ("cluster", NotImplementedError), ("nope", ValueError)):
         with pytest.raises(exc):
             RenderConfig(width=8, height=8, tracer=name)
+
+
+def test_renderer_defaults_to_the_card():
+    # The entry points run on the card unless the caller asks for the CPU:
+    # without a CUDA device a Renderer built with no device raises instead
+    # of rendering on the CPU.
+    assert inspect.signature(Renderer).parameters["device"].default == "cuda"
+    assert inspect.signature(
+        RenderState.create).parameters["device"].default == "cuda"
+    cfg = RenderConfig(width=16, height=8, spp=1, bounces=2, tracer="pallas")
+    if torch.cuda.is_available():
+        r = Renderer(tfix.scene1(), tfix.scene1_camera(2.0), cfg)
+        assert r.device.type == "cuda" and r.state.accum.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Renderer(tfix.scene1(), tfix.scene1_camera(2.0), cfg)

@@ -1,6 +1,7 @@
 """Build, load and bind the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` to an object, all of
+them at once in parallel, and links the objects into one shared library
 with a plain C interface, which ``ctypes`` loads. The library goes to
 ``build/`` beside this file, named by a hash of the sources and flags: it is
 built at first use and rebuilt when a source changes. ``-fmad=false`` keeps
@@ -29,9 +30,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"path": 0, "trace": 0, "env": 0, "env_planes": 0}
+LAUNCHES = {"path": 0, "trace": 0, "env": 0, "env_planes": 0, "uniform": 0,
+            "bounce_rows": 0}
+# Bounces whose keys fit BounceArgs (URT_MAX_BOUNCES in uniform_kernel.cu).
+MAX_BOUNCES = 32
 
 _LIB = None
 BUILD_LOG = ""
@@ -46,13 +50,27 @@ class SceneArgs(ctypes.Structure):
         ("mat_albedo", ctypes.c_void_p), ("mat_specular", ctypes.c_void_p),
         ("mat_emission", ctypes.c_void_p), ("mat_smooth", ctypes.c_void_p),
         ("ground_enabled", ctypes.c_float), ("ground_mat", ctypes.c_int),
-        ("node_vmin", ctypes.c_void_p), ("node_vmax", ctypes.c_void_p),
-        ("node_left", ctypes.c_void_p), ("node_right", ctypes.c_void_p),
+        ("root_box", ctypes.c_void_p), ("nodes", ctypes.c_void_p),
+        ("leaf_boxes", ctypes.c_void_p),
         ("n_clusters", ctypes.c_int), ("cluster_size", ctypes.c_int),
-        ("tri_v0", ctypes.c_void_p), ("tri_v1", ctypes.c_void_p),
-        ("tri_v2", ctypes.c_void_p), ("tri_n0", ctypes.c_void_p),
+        ("tris", ctypes.c_void_p), ("tri_n0", ctypes.c_void_p),
         ("tri_n1", ctypes.c_void_p), ("tri_n2", ctypes.c_void_p),
         ("tri_mat", ctypes.c_void_p),
+    ]
+
+
+class BounceArgs(ctypes.Structure):
+    """Mirror of ``struct BounceArgs`` in csrc/uniform_kernel.cu: the per-
+    bounce keys and the ray lattice of one frame's uniform rows, handed to
+    the kernel by value."""
+
+    _fields_ = [
+        ("keys", ctypes.c_uint32 * (MAX_BOUNCES * 4 * 2)),
+        ("n", ctypes.c_int), ("nb", ctypes.c_int), ("h", ctypes.c_int),
+        ("W", ctypes.c_int), ("row0", ctypes.c_int), ("Hg", ctypes.c_int),
+        ("Wg", ctypes.c_int), ("blocked", ctypes.c_int),
+        ("rr_step", ctypes.c_int), ("rr_lo", ctypes.c_int),
+        ("rr_hi", ctypes.c_int),
     ]
 
 
@@ -77,23 +95,44 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds):
+    """Run the commands at once; return their (code, stderr) in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True, cwd=CSRC)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    return [(p.returncode, e) for p, e in zip(procs, errs)]
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    The ptxas report (registers, spills) lands in ``BUILD_LOG``."""
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc per source, all started together, then one link. The ptxas
+    report (registers, stack, spills) lands in ``BUILD_LOG``."""
     global BUILD_LOG
     path = library_path()
     if path.exists():
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cus, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas=-v", "-o", str(tmp),
-           *map(str, cus)]
-    res = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    BUILD_LOG = res.stderr
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    tmp_dir = BUILD_DIR / f"{path.stem}.{os.getpid()}.tmp"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        cus, _ = _sources()
+        objs = [tmp_dir / f"{cu.stem}.o" for cu in cus]
+        results = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", "-o",
+                             str(o), str(cu)] for cu, o in zip(cus, objs)])
+        for cu, (code, err) in zip(cus, results):
+            if code != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {cu.name} ({code}):\n{err}")
+        tmp = tmp_dir / path.name
+        (code, err), = _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o",
+                                  str(tmp), *map(str, objs)]])
+        if code != 0:
+            raise RuntimeError(f"nvcc link failed ({code}):\n{err}")
+        BUILD_LOG = "".join(err for _, err in results)
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return path
 
 
@@ -103,13 +142,17 @@ def lib() -> ctypes.CDLL:
     if _LIB is None:
         so = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        so.urt_trace_hits.argtypes = [p, p, p, p, p, p, i, p, p]
-        so.urt_path_trace.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                      p, p]
+        u32 = ctypes.c_uint32
+        so.urt_trace_hits.argtypes = [p, p, p, p, p, p, p, i, p, p]
+        so.urt_path_trace.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                      i, p, p]
         so.urt_env_lookup.argtypes = [p, p, p, p, i, p, i, p]
         so.urt_env_lookup_planes.argtypes = [p, p, p, p, i, p, i, p]
+        so.urt_uniform.argtypes = [u32, u32, p, ctypes.c_longlong, p]
+        so.urt_bounce_rows.argtypes = [p, p, p]
         for fn in (so.urt_trace_hits, so.urt_path_trace, so.urt_env_lookup,
-                   so.urt_env_lookup_planes):
+                   so.urt_env_lookup_planes, so.urt_uniform,
+                   so.urt_bounce_rows):
             fn.restype = ctypes.c_int
         _LIB = so
     return _LIB

@@ -7,10 +7,9 @@
 // clusters with lane bitmasks, tests triangles as Pluecker edges and picks
 // winners with one-hot matrix products; none of that carries over. Here one
 // thread holds one ray and walks the ClusterAccel LBVH (ops/bvh.py) from device
-// memory with a small stack, testing each leaf cluster's triangles with the
-// Moller-Trumbore test of ops/intersect.py, in the same operation order, so the
-// plain torch version (ops/trace.py) gives the same bits when the build keeps
-// -fmad=false.
+// memory with a small stack, testing triangles with the Moller-Trumbore test of
+// ops/intersect.py, in the same operation order, so the plain torch version
+// (ops/trace.py) gives the same bits when the build keeps -fmad=false.
 //
 // Winner rules (those of ops/trace.py:trace_brute):
 //   * ground first; a sphere must be strictly nearer; among spheres the first
@@ -21,8 +20,22 @@
 //
 // Bound on this card: divergent traversal. Threads of a warp visit different
 // nodes and leaves, and every node and triangle read is a dependent load from
-// device memory (L2 at best). Nothing in this first version addresses it: one
-// thread per ray, no ray sorting, no wide nodes, no shared-memory staging.
+// L2 or device memory, so the kernel waits on loads, not on arithmetic. The
+// design cuts what a ray loads and tests, on the tables that
+// ops/cuda_trace.kernel_tables derives from the shared ClusterAccel (whose
+// 64-triangle leaves are the TPU's lane width):
+//   * an inner node is one 64-byte record holding both children's boxes and
+//     codes, so a visit tests both children from one parent read (four
+//     16-byte loads instead of twelve scalar box loads and two index loads);
+//   * a leaf is split into 8 runs of S/8 triangles, each with its exact box;
+//     the leaf's 8 boxes (192 bytes) are slab-tested first and MT97 runs only
+//     on the runs the ray meets, nearest first, while the bound shrinks;
+//   * a triangle is three float4 loads, v0 and the exact edges e1 = v1 - v0,
+//     e2 = v2 - v0, instead of nine scalar loads.
+// A box test is conservative (below), so no run holding a hit that can win
+// is culled, and the tie rule does not depend on visiting order: the winner
+// stays the exhaustive plain version's, bit for bit. Not done here (ROADMAP):
+// persistent threads, ray sorting, wide BVHs.
 
 #pragma once
 
@@ -30,9 +43,10 @@
 
 #define URT_F32_MAX 3.402823466e+38f
 #define URT_STACK 64
+#define URT_RUNS 8
 
-// Device pointers and sizes of the scene and its accel. Mirrors the ctypes
-// structure in _build.py field for field.
+// Device pointers and sizes of the scene and its kernel tables. Mirrors the
+// ctypes structure in _build.py field for field.
 struct SceneArgs {
   const float* sph_center;    // (S, 3)
   const float* sph_radius;    // (S,)
@@ -44,16 +58,20 @@ struct SceneArgs {
   const float* mat_smooth;    // (M,)
   float ground_enabled;
   int ground_mat;
-  const float* node_vmin;     // (2C-1, 3)
-  const float* node_vmax;     // (2C-1, 3)
-  const int* node_left;       // (2C-1,) child node, -1 on leaves
-  const int* node_right;      // (2C-1,)
-  int n_clusters;             // C; leaf k is node C-1+k
-  int cluster_size;           // S; leaf k holds triangles [k*S, (k+1)*S)
-  const float* tri_v0;        // (C*S, 3) in accel order
-  const float* tri_v1;
-  const float* tri_v2;
-  const float* tri_n0;
+  const float* root_box;      // (8,) root node: lo xyz, hi xyz, 0, 0
+  const int* nodes;           // (max(C-1, 1), 16) inner-node records, float
+                              // bits: x of (left lo, left hi, right lo,
+                              // right hi), then y, then z, then the child
+                              // codes (inner node m, or ~k for leaf k), 0, 0
+  const float* leaf_boxes;    // (C, 48): leaf k's run boxes as 12 float4,
+                              // float4 (side * 3 + axis) * 2 + half holds
+                              // runs 4 * half .. 4 * half + 3 (side 0 lo)
+  int n_clusters;             // C
+  int cluster_size;           // S, a multiple of 8; leaf k holds triangles
+                              // [k*S, (k+1)*S), run r of it [k*S + r*S/8, ..)
+  const float* tris;          // (C*S, 12): float4 v0, e1, e2 (w = 0), in
+                              // accel order
+  const float* tri_n0;        // (C*S, 3)
   const float* tri_n1;
   const float* tri_n2;
   const int* tri_mat;         // (C*S,)
@@ -66,15 +84,22 @@ struct HitRec {
   int prim;    // triangle index; C*S for the ground; C*S+1+s for sphere s; -1
 };
 
-// Slab test of node `node` against the ray. The far distance is widened by
-// 1 + 2*gamma(3) so rounding in the six products never culls a box the ray
-// meets (the conservative form of PBRT's ray-box test).
-static __device__ __forceinline__ bool urt_box(const SceneArgs& s, int node,
-                                        const float o[3], const float inv[3],
-                                        float bound, float& tnear) {
+// Box and triangle tests made by one ray, for the traversal-count output.
+struct TravCount {
+  int box;
+  int tri;
+};
+
+// Slab test of the box [lo, hi] against the ray. The far distance is widened
+// by 1 + 2*gamma(3) so rounding in the six products never culls a box the
+// ray meets (the conservative form of PBRT's ray-box test).
+static __device__ __forceinline__ bool urt_slab(float lx, float ly, float lz,
+                                                float hx, float hy, float hz,
+                                                const float o[3],
+                                                const float inv[3],
+                                                float bound, float& tnear) {
+  const float lo[3] = {lx, ly, lz}, hi[3] = {hx, hy, hz};
   float tmin = -URT_F32_MAX, tmax = URT_F32_MAX;
-  const float* lo = s.node_vmin + 3 * node;
-  const float* hi = s.node_vmax + 3 * node;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     float t1 = (lo[a] - o[a]) * inv[a];
@@ -87,29 +112,33 @@ static __device__ __forceinline__ bool urt_box(const SceneArgs& s, int node,
   return tmax >= tmin && tmax > 0.0f && tmin <= bound;
 }
 
+static __device__ __forceinline__ float urt_lane(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
 // Moller-Trumbore with backface culling, ops/intersect.py:intersect_triangles
-// operation for operation.
-static __device__ __forceinline__ bool urt_mt97(const SceneArgs& s, int j,
-                                         const float o[3], const float d[3],
-                                         float& t, float& u, float& v) {
-  const float* a = s.tri_v0 + 3 * j;
-  const float* b = s.tri_v1 + 3 * j;
-  const float* c = s.tri_v2 + 3 * j;
-  float e1x = b[0] - a[0], e1y = b[1] - a[1], e1z = b[2] - a[2];
-  float e2x = c[0] - a[0], e2y = c[1] - a[1], e2z = c[2] - a[2];
-  float px = d[1] * e2z - d[2] * e2y;
-  float py = d[2] * e2x - d[0] * e2z;
-  float pz = d[0] * e2y - d[1] * e2x;
-  float det = e1x * px + e1y * py + e1z * pz;
+// operation for operation (the edges come precomputed, the same IEEE
+// differences).
+static __device__ __forceinline__ bool urt_mt97(const float4* tris, int j,
+                                                const float o[3],
+                                                const float d[3], float& t,
+                                                float& u, float& v) {
+  const float4 a = __ldg(tris + 3 * j);
+  const float4 e1 = __ldg(tris + 3 * j + 1);
+  const float4 e2 = __ldg(tris + 3 * j + 2);
+  float px = d[1] * e2.z - d[2] * e2.y;
+  float py = d[2] * e2.x - d[0] * e2.z;
+  float pz = d[0] * e2.y - d[1] * e2.x;
+  float det = e1.x * px + e1.y * py + e1.z * pz;
   if (!(det >= 1e-8f)) return false;
   float inv_det = 1.0f / det;
-  float tx = o[0] - a[0], ty = o[1] - a[1], tz = o[2] - a[2];
+  float tx = o[0] - a.x, ty = o[1] - a.y, tz = o[2] - a.z;
   u = (tx * px + ty * py + tz * pz) * inv_det;
-  float qx = ty * e1z - tz * e1y;
-  float qy = tz * e1x - tx * e1z;
-  float qz = tx * e1y - ty * e1x;
+  float qx = ty * e1.z - tz * e1.y;
+  float qy = tz * e1.x - tx * e1.z;
+  float qz = tx * e1.y - ty * e1.x;
   v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv_det;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
   return u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
 }
 
@@ -126,11 +155,68 @@ static __device__ __forceinline__ void urt_normalize(float n[3]) {
   n[2] = n[2] * inv;
 }
 
+// The triangles of leaf k that can beat the current winner: the leaf's run
+// boxes slab-tested against min(tt, tgs), then MT97 on the runs the ray
+// meets, nearest box first, each against the bound as it stands.
+static __device__ __forceinline__ void urt_leaf(
+    const SceneArgs& s, int k, const float o[3], const float d[3],
+    const float inv[3], float tgs, float& tt, float& tu, float& tv, int& ti,
+    TravCount& cnt) {
+  const float4* lb = reinterpret_cast<const float4*>(s.leaf_boxes) + 12 * k;
+  const float bound = fminf(tt, tgs);
+  float tn[URT_RUNS];
+  unsigned int mask = 0u;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float4 lx = __ldg(lb + half), ly = __ldg(lb + 2 + half),
+                 lz = __ldg(lb + 4 + half), hx = __ldg(lb + 6 + half),
+                 hy = __ldg(lb + 8 + half), hz = __ldg(lb + 10 + half);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (urt_slab(urt_lane(lx, c), urt_lane(ly, c), urt_lane(lz, c),
+                   urt_lane(hx, c), urt_lane(hy, c), urt_lane(hz, c), o, inv,
+                   bound, tn[half * 4 + c]))
+        mask |= 1u << (half * 4 + c);
+    }
+  }
+  cnt.box += URT_RUNS;
+  const float4* tris = reinterpret_cast<const float4*>(s.tris);
+  const int run = s.cluster_size / URT_RUNS;
+  while (mask) {
+    int best = -1;
+    float bt = 0.0f;
+#pragma unroll
+    for (int q = 0; q < URT_RUNS; ++q) {
+      if (((mask >> q) & 1u) && (best < 0 || tn[q] < bt)) {
+        bt = tn[q];
+        best = q;
+      }
+    }
+    mask &= ~(1u << best);
+    // Nearest first: every run left starts at bt or farther.
+    if (bt > fminf(tt, tgs)) break;
+    const int j0 = k * s.cluster_size + best * run;
+    for (int j = j0; j < j0 + run; ++j) {
+      float t, u, v;
+      ++cnt.tri;
+      if (urt_mt97(tris, j, o, d, t, u, v) && t < tgs &&
+          (t < tt || (t == tt && j < ti))) {
+        tt = t;
+        ti = j;
+        tu = u;
+        tv = v;
+      }
+    }
+  }
+}
+
 // Nearest hit of ray (o, d). On a traversal-stack overflow it sets *err and
 // stops; the flag stays set until the host reads it and raises
-// (_build.raise_on_overflow), so no node is dropped silently.
+// (_build.raise_on_overflow), so no node is dropped silently. `cnt` gains
+// the box and triangle tests the ray made.
 static __device__ void urt_closest_hit(const SceneArgs& s, const float o[3],
-                                const float d[3], HitRec& h, int* err) {
+                                       const float d[3], HitRec& h, int* err,
+                                       TravCount& cnt) {
   // Ground plane y = 0 (intersect_ground).
   float safe_dy = fabsf(d[1]) < 1e-20f ? 1e-20f : d[1];
   float tg = -o[1] / safe_dy;
@@ -157,7 +243,8 @@ static __device__ void urt_closest_hit(const SceneArgs& s, const float o[3],
   bool sphere_wins = ts < tg;
   float tgs = sphere_wins ? ts : tg;
 
-  // Triangles: LBVH stack traversal, nearer child popped first.
+  // Triangles: LBVH stack traversal, nearer child popped first. A stack
+  // entry is a child code: inner node m >= 0, or ~k for leaf k.
   float inv[3] = {urt_safe_inv(d[0]), urt_safe_inv(d[1]), urt_safe_inv(d[2])};
   float tt = URT_F32_MAX, tu = 0.0f, tv = 0.0f;
   int ti = -1;
@@ -165,51 +252,46 @@ static __device__ void urt_closest_hit(const SceneArgs& s, const float o[3],
   float stack_t[URT_STACK];
   int sp = 0;
   float tn;
-  if (urt_box(s, 0, o, inv, tgs, tn)) {
-    stack[0] = 0;
+  const float* rb = s.root_box;
+  ++cnt.box;
+  if (urt_slab(rb[0], rb[1], rb[2], rb[3], rb[4], rb[5], o, inv, tgs, tn)) {
+    stack[0] = s.n_clusters > 1 ? 0 : ~0;
     stack_t[0] = tn;
     sp = 1;
   }
-  const int leaf0 = s.n_clusters - 1;
+  const float4* nodes = reinterpret_cast<const float4*>(s.nodes);
   while (sp > 0) {
     --sp;
-    int node = stack[sp];
-    float bound = fminf(tt, tgs);
+    const int code = stack[sp];
+    const float bound = fminf(tt, tgs);
     if (stack_t[sp] > bound) continue;
-    int l = s.node_left[node];
-    if (l < 0) {
-      int base = (node - leaf0) * s.cluster_size;
-      for (int j = base; j < base + s.cluster_size; ++j) {
-        float t, u, v;
-        if (urt_mt97(s, j, o, d, t, u, v) && t < tgs &&
-            (t < tt || (t == tt && j < ti))) {
-          tt = t;
-          ti = j;
-          tu = u;
-          tv = v;
-        }
-      }
-    } else {
-      int r = s.node_right[node];
-      float tl, tr;
-      bool hl = urt_box(s, l, o, inv, bound, tl);
-      bool hr = urt_box(s, r, o, inv, bound, tr);
-      if (sp + 2 > URT_STACK) {
-        atomicOr(err, 1);
-        break;
-      }
-      if (hl && hr) {
-        bool left_first = tl <= tr;
-        stack[sp] = left_first ? r : l;
-        stack_t[sp] = left_first ? tr : tl;
-        stack[sp + 1] = left_first ? l : r;
-        stack_t[sp + 1] = left_first ? tl : tr;
-        sp += 2;
-      } else if (hl || hr) {
-        stack[sp] = hl ? l : r;
-        stack_t[sp] = hl ? tl : tr;
-        sp += 1;
-      }
+    if (code < 0) {
+      urt_leaf(s, ~code, o, d, inv, tgs, tt, tu, tv, ti, cnt);
+      continue;
+    }
+    const float4 X = __ldg(nodes + 4 * code), Y = __ldg(nodes + 4 * code + 1),
+                 Z = __ldg(nodes + 4 * code + 2);
+    const int4 ch = __ldg(reinterpret_cast<const int4*>(nodes + 4 * code + 3));
+    float tl, tr;
+    bool hl = urt_slab(X.x, Y.x, Z.x, X.y, Y.y, Z.y, o, inv, bound, tl);
+    bool hr = urt_slab(X.z, Y.z, Z.z, X.w, Y.w, Z.w, o, inv, bound, tr);
+    cnt.box += 2;
+    if (sp + 2 > URT_STACK) {
+      atomicOr(err, 1);
+      break;
+    }
+    const int l = ch.x, r = ch.y;
+    if (hl && hr) {
+      bool left_first = tl <= tr;
+      stack[sp] = left_first ? r : l;
+      stack_t[sp] = left_first ? tr : tl;
+      stack[sp + 1] = left_first ? l : r;
+      stack_t[sp + 1] = left_first ? tl : tr;
+      sp += 2;
+    } else if (hl || hr) {
+      stack[sp] = hl ? l : r;
+      stack_t[sp] = hl ? tl : tr;
+      sp += 1;
     }
   }
 

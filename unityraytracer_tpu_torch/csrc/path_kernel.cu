@@ -18,9 +18,15 @@
 // random numbers.
 //
 // Bound on this card: the traversal inside urt_closest_hit (divergent, with
-// device-memory latency on node and triangle reads). Paths also diverge in
-// length, so warps idle once most of their rays are dead. Nothing in this
-// first version addresses either: one thread per ray, no compaction.
+// L2 and device-memory latency on node and triangle reads; closest_hit.cuh
+// says what its tables do about it). Paths also diverge in length, so warps
+// idle once most of their rays are dead; nothing here addresses that: one
+// thread per ray, no compaction.
+//
+// With a counts pointer the kernel also writes, per ray, the box tests and
+// the triangle tests of all its bounces, counted in registers and written
+// once (rows 0 and 1 of a (2, n) int32 buffer), which is what the path
+// kernel's bound in PERF.md is reckoned from.
 //
 // With a state pointer the kernel also writes the packed resume state of
 // pallas_path.py:324-332 (emit_state), which the bounce split gathers
@@ -40,14 +46,16 @@
 
 // ro, rd: (3, n); alive0: (n,) or null (all alive); energy0: (3, n) or null
 // (all ones); uni: (nb, 5, n); out: (9, n) rows radiance rgb, sky throughput
-// rgb, sky direction xyz; state: (16, n) resume state, or null.
+// rgb, sky direction xyz; state: (16, n) resume state, or null; counts:
+// (2, n) box and triangle tests, or null.
 __global__ void urt_path_kernel(SceneArgs s, const float* __restrict__ ro,
                                 const float* __restrict__ rd,
                                 const float* __restrict__ alive0,
                                 const float* __restrict__ energy0,
                                 const float* __restrict__ uni,
                                 float* __restrict__ out,
-                                float* __restrict__ state, int n, int b0,
+                                float* __restrict__ state,
+                                int* __restrict__ counts, int n, int b0,
                                 int nb, int bounces, int use_rr, int* err) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -62,6 +70,7 @@ __global__ void urt_path_kernel(SceneArgs s, const float* __restrict__ ro,
   float rad[3] = {0.0f, 0.0f, 0.0f};
   float se[3] = {0.0f, 0.0f, 0.0f};
   float sd[3] = {0.0f, 1.0f, 0.0f};
+  TravCount cnt = {0, 0};
 
   int lb = 0;
   for (; lb < nb && alive; ++lb) {
@@ -74,7 +83,7 @@ __global__ void urt_path_kernel(SceneArgs s, const float* __restrict__ ro,
     const float u_rr = u[4 * (size_t)n];
 
     HitRec h;
-    urt_closest_hit(s, o, d, h, err);
+    urt_closest_hit(s, o, d, h, err, cnt);
     float t = h.t >= URT_F32_MAX * 0.5f ? URT_MISS * 1.5f : h.t;
     if (t >= URT_MISS) {
       // First miss of a live path: record its throughput and direction for
@@ -178,19 +187,23 @@ __global__ void urt_path_kernel(SceneArgs s, const float* __restrict__ ro,
 #pragma unroll
     for (int k = 10; k < 16; ++k) state[(size_t)k * n + i] = 0.0f;
   }
+  if (counts) {
+    counts[i] = cnt.box;
+    counts[(size_t)n + i] = cnt.tri;
+  }
 }
 
 extern "C" int urt_path_trace(const SceneArgs* s, const float* ro,
                               const float* rd, const float* alive0,
                               const float* energy0, const float* uni,
-                              float* out, float* state, int n, int b0, int nb,
-                              int bounces, int use_rr, int* err,
-                              cudaStream_t stream) {
+                              float* out, float* state, int* counts, int n,
+                              int b0, int nb, int bounces, int use_rr,
+                              int* err, cudaStream_t stream) {
   if (n > 0) {
     const int threads = 128;
     urt_path_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-        *s, ro, rd, alive0, energy0, uni, out, state, n, b0, nb, bounces,
-        use_rr, err);
+        *s, ro, rd, alive0, energy0, uni, out, state, counts, n, b0, nb,
+        bounces, use_rr, err);
   }
   return (int)cudaGetLastError();
 }

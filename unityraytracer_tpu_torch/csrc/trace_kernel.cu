@@ -5,27 +5,32 @@
 // complete hit record per ray, dead rays reported as misses. It serves the
 // bounce loop of render.py when megakernel=False.
 //
-// Bound on this card: divergent BVH traversal with device-memory latency on
-// every node and triangle read (see closest_hit.cuh). The 14 output rows are
-// coalesced writes and cost little beside it. Nothing in this first version
-// addresses the traversal bound: one thread per ray.
+// Bound on this card: divergent BVH traversal with L2 and device-memory
+// latency on node and triangle reads (closest_hit.cuh says what its tables
+// do about it). The 14 output rows are coalesced writes and cost little
+// beside it. One thread per ray. With a counts pointer it also writes each
+// ray's box and triangle tests ((2, n) int32), as the path kernel does.
 
 #include "closest_hit.cuh"
 
 // out: (14, n) rows t, normal xyz, albedo rgb, specular rgb, emission rgb,
 // smoothness; t = FLT_MAX on a miss. prim: (n,) winner (see HitRec).
+// counts: (2, n) box and triangle tests, or null.
 __global__ void urt_trace_hits_kernel(SceneArgs s, const float* __restrict__ ro,
                                       const float* __restrict__ rd,
                                       const float* __restrict__ alive,
                                       float* __restrict__ out,
-                                      int* __restrict__ prim, int n, int* err) {
+                                      int* __restrict__ prim,
+                                      int* __restrict__ counts, int n,
+                                      int* err) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   HitRec h;
+  TravCount cnt = {0, 0};
   if (alive[i] > 0.0f) {
     float o[3] = {ro[i], ro[(size_t)n + i], ro[2 * (size_t)n + i]};
     float d[3] = {rd[i], rd[(size_t)n + i], rd[2 * (size_t)n + i]};
-    urt_closest_hit(s, o, d, h, err);
+    urt_closest_hit(s, o, d, h, err, cnt);
   } else {
     h.t = URT_F32_MAX;
     h.n[0] = h.n[1] = h.n[2] = 0.0f;
@@ -51,16 +56,20 @@ __global__ void urt_trace_hits_kernel(SceneArgs s, const float* __restrict__ ro,
 #pragma unroll
   for (int k = 0; k < 14; ++k) out[(size_t)k * n + i] = row[k];
   prim[i] = h.prim;
+  if (counts) {
+    counts[i] = cnt.box;
+    counts[(size_t)n + i] = cnt.tri;
+  }
 }
 
 extern "C" int urt_trace_hits(const SceneArgs* s, const float* ro,
                               const float* rd, const float* alive, float* out,
-                              int* prim, int n, int* err,
+                              int* prim, int* counts, int n, int* err,
                               cudaStream_t stream) {
   if (n > 0) {
     const int threads = 128;
     urt_trace_hits_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-        *s, ro, rd, alive, out, prim, n, err);
+        *s, ro, rd, alive, out, prim, counts, n, err);
   }
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,8 @@ import torch
 
 from .. import _build
 from . import vec
-from .cuda_trace import KernelScene, _check_rays, closest_hit_plain
+from .cuda_trace import (KernelScene, _check_rays, check_counts,
+                         closest_hit_plain)
 from .vec import Vec3
 
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -116,7 +117,7 @@ def path_trace_plain(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
 
 def path_trace(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
                b0: int = 0, nb: int = None, energy0=None, alive0=None,
-               emit_state: bool = False):
+               emit_state: bool = False, counts=None):
     """Trace + shade path bounces [b0, b0+nb) of all rays.
 
     ro/rd: Vec3 of (N,) rays. ``uni``: the (nb, 5, N) uniform rows of the
@@ -127,9 +128,11 @@ def path_trace(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
     energy after roulette, 9 alive, 10-15 zero. It is the JAX kernel's for
     every ray: a dead ray keeps the ray of the bounce where it died, and its
     energy is 0 once a bounce ran after its death (so always, for nb >= 1,
-    unless it died in the last one). The CUDA kernel runs for CUDA tensors,
-    the plain version for CPU tensors. A traversal overflow raises at the
-    next ``_build.raise_on_overflow``."""
+    unless it died in the last one). ``counts``: optional (2, N) int32 CUDA
+    tensor that the kernel fills with each ray's box and triangle tests over
+    its bounces (None on the main path). The CUDA kernel runs for CUDA
+    tensors, the plain version for CPU tensors. A traversal overflow raises
+    at the next ``_build.raise_on_overflow``."""
     nb = cfg.bounces if nb is None else nb
     if ro[0].device.type == "cpu":
         return path_trace_plain(ks, ro, rd, uni, cfg, b0=b0, nb=nb,
@@ -158,7 +161,8 @@ def path_trace(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
         a1.data_ptr() if a1 is not None else None,
         e3.data_ptr() if e3 is not None else None,
         uni.data_ptr(), out.data_ptr(),
-        state.data_ptr() if emit_state else None, n, b0, nb, cfg.bounces,
+        state.data_ptr() if emit_state else None,
+        check_counts(ks, counts, n), n, b0, nb, cfg.bounces,
         int(cfg.russian_roulette), _build.error_flag(ks.device).data_ptr(),
         _build.stream_ptr(ks.device))
     _build.LAUNCHES["path"] += 1

@@ -6,7 +6,8 @@ The port of the JAX package's ``render.py``:
   bounced ``bounces`` times through a tracer (``"brute"`` or the
   closest-hit kernel), with wavefront parking and Russian roulette.
 * ``render_sample_mega``: the same frame through the path kernel — every
-  bounce in one launch, fed the same uniform rows; with ``split_bounce``,
+  bounce in one launch, fed the same uniform rows, which ``bounce_rows``
+  draws in one launch of the threefry kernel; with ``split_bounce``,
   the deep bounces on a compact buffer of the surviving rays
   (``_path_trace_split``).
 * ``render_frame``: the best path for a config, in ``spp_chunk`` sub-frames
@@ -22,6 +23,7 @@ port render and a JAX render of one seed agree pixel for pixel.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 import os
@@ -62,7 +64,7 @@ class RenderState:
     n_samples: int        # frames accumulated
 
     @staticmethod
-    def create(width: int, height: int, device="cpu") -> "RenderState":
+    def create(width: int, height: int, device="cuda") -> "RenderState":
         return RenderState(accum=torch.zeros((height, width, 3),
                                              dtype=torch.float32,
                                              device=device),
@@ -87,15 +89,17 @@ def _uniform(key, n: int, device):
 
 
 def _rr_uniform(key, cfg: RenderConfig, spp: int, h: int, W: int,
-                row0: int, to_blocks: Callable, device) -> torch.Tensor:
+                row0: int, to_blocks: Callable, device,
+                uniform: Callable = rng.uniform) -> torch.Tensor:
     """Russian-roulette uniforms, per ray or shared per (8, 128)-pixel group
-    on absolute output coordinates (cfg.rr_group == "step")."""
+    on absolute output coordinates (cfg.rr_group == "step"), drawn with
+    ``uniform(key, shape, device)``."""
     N = spp * h * W
     if cfg.rr_group != "step":
-        return to_blocks(_uniform(key, N, device))
+        return to_blocks(uniform(key, (N,), device))
     Hg = (cfg.height + 7) // 8
     Wg = (W + 127) // 128
-    ug = rng.uniform(key, (spp, Hg, Wg), device=device)
+    ug = uniform(key, (spp, Hg, Wg), device)
     full = ug[:, :, None, :, None].expand(spp, Hg, 8, Wg, 128) \
         .reshape(spp, Hg * 8, Wg * 128)
     band = full[:, row0:row0 + h, :W]
@@ -258,12 +262,93 @@ def render_sample(scene: Scene, tracer: Callable, camera: Camera, key,
     return img
 
 
+def _rr_bounces(cfg: RenderConfig):
+    """The bounces [lo, hi) whose roulette row is drawn (2 <= b < B-1 with
+    Russian roulette); the row is 1 elsewhere."""
+    return (2, cfg.bounces - 1) if cfg.russian_roulette else (0, 0)
+
+
+def bounce_rows_plain(k_bounce, cfg: RenderConfig, h: int, row0: int,
+                      blocked: bool, device) -> torch.Tensor:
+    """Plain version of ``bounce_rows``: bounce by bounce, the int64
+    threefry draws of ``rng.uniform_plain`` and torch's log2, cos and sin.
+    The draws are block-native (``_draw_fn`` is the identity on the
+    megakernel's layout), so u_r, u1 and u2 of ray i sit at counter i."""
+    W, spp = cfg.width, cfg.spp
+    N = spp * h * W
+    to_blocks, _ = _block_permutes(h, W, spp, blocked)
+    rr_lo, rr_hi = _rr_bounces(cfg)
+    two_pi = 2.0 * 3.14159265
+    uni = torch.empty((cfg.bounces, 5, N), dtype=torch.float32, device=device)
+    for b in range(cfg.bounces):
+        kb = rng.fold_in(k_bounce, b)
+        u_r, u1, u2 = (rng.uniform_plain(rng.fold_in(kb, i), (N,), device)
+                       for i in range(3))
+        uni[b, 0] = u_r
+        uni[b, 1] = torch.log2(torch.clamp_min(u1, 1e-12))
+        phi = two_pi * u2
+        uni[b, 2] = torch.cos(phi)
+        uni[b, 3] = torch.sin(phi)
+        if rr_lo <= b < rr_hi:
+            uni[b, 4] = _rr_uniform(rng.fold_in(kb, 3), cfg, spp, h, W, row0,
+                                    to_blocks, device, rng.uniform_plain)
+        else:
+            uni[b, 4] = 1.0
+    return uni
+
+
+def bounce_args(k_bounce, cfg: RenderConfig, h: int, row0: int,
+                blocked: bool) -> _build.BounceArgs:
+    """The threefry kernel's by-value arguments for one frame's uniform
+    rows: the keys of ``rng.bounce_keys`` and the ray lattice."""
+    if cfg.bounces > _build.MAX_BOUNCES:
+        raise ValueError(f"{cfg.bounces} bounces: the uniform-row kernel "
+                         f"takes at most {_build.MAX_BOUNCES}")
+    W = cfg.width
+    if cfg.spp * h * W >= 2 ** 31:
+        raise ValueError(f"{cfg.spp * h * W} rays exceed the uniform-row "
+                         "kernel's 32-bit indexing")
+    args = _build.BounceArgs()
+    keys = rng.bounce_keys(k_bounce, cfg.bounces).reshape(-1)
+    args.keys[:keys.size] = keys.tolist()
+    args.n, args.nb, args.h, args.W, args.row0 = (cfg.spp * h * W,
+                                                  cfg.bounces, h, W, row0)
+    args.Hg, args.Wg = (cfg.height + 7) // 8, (W + 127) // 128
+    args.blocked = int(blocked)
+    args.rr_step = int(cfg.rr_group == "step")
+    args.rr_lo, args.rr_hi = _rr_bounces(cfg)
+    return args
+
+
+def bounce_rows(k_bounce, cfg: RenderConfig, h: int, row0: int,
+                blocked: bool, device) -> torch.Tensor:
+    """The path kernel's (bounces, 5, N) uniform rows for a band of ``h``
+    rows from ``row0``: roulette u_r, log2 max(u1, 1e-12), cos 2 pi u2,
+    sin 2 pi u2 and the Russian-roulette draw (1 outside the bounces that
+    draw it), per ray in 8x16 block order when ``blocked``. For a CUDA
+    device in one launch of the threefry kernel, with the keys passed by
+    value (no host-to-device copy); for the CPU, ``bounce_rows_plain``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return bounce_rows_plain(k_bounce, cfg, h, row0, blocked, device)
+    if device.type != "cuda":
+        raise ValueError(f"no uniform-row kernel for device {device}")
+    args = bounce_args(k_bounce, cfg, h, row0, blocked)
+    uni = torch.empty((cfg.bounces, 5, args.n), dtype=torch.float32,
+                      device=device)
+    code = _build.lib().urt_bounce_rows(ctypes.byref(args), uni.data_ptr(),
+                                        _build.stream_ptr(device))
+    _build.LAUNCHES["bounce_rows"] += 1
+    _build.check(code, "bounce_rows")
+    return uni
+
+
 def mega_inputs(scene: Scene, camera: Camera, key, cfg: RenderConfig,
                 row0: int = 0, rows: Optional[int] = None):
     """What the path kernel consumes for one frame: camera rays in 8x16
-    block order, the (bounces, 5, N) uniform rows (roulette, log2 u1,
-    cos 2 pi u2, sin 2 pi u2, RR) and the sky-tap uniforms — the same
-    numbers the JAX package's ``render_sample_mega`` computes."""
+    block order, the (bounces, 5, N) uniform rows (``bounce_rows``) and the
+    sky-tap uniforms — the same numbers the JAX package's
+    ``render_sample_mega`` computes."""
     H, W, spp = cfg.height, cfg.width, cfg.spp
     h = H if rows is None else rows
     N = h * W * spp
@@ -272,27 +357,10 @@ def mega_inputs(scene: Scene, camera: Camera, key, cfg: RenderConfig,
     draw = _draw_fn(h, W, spp, blocked)
     ro, rd, k_bounce = _camera_rays(camera, key, cfg, h, W, spp, row0,
                                     blocked, draw, device)
-    to_blocks, from_blocks = _block_permutes(h, W, spp, blocked)
-
-    def uniform(key_):
-        return draw(_uniform(key_, N, device))
-
-    two_pi = 2.0 * 3.14159265
-    uni = torch.empty((cfg.bounces, 5, N), dtype=torch.float32, device=device)
-    for b in range(cfg.bounces):
-        kb = rng.fold_in(k_bounce, b)
-        u_r, u1, u2 = (uniform(rng.fold_in(kb, i)) for i in range(3))
-        uni[b, 0] = u_r
-        uni[b, 1] = torch.log2(torch.clamp_min(u1, 1e-12))
-        phi = two_pi * u2
-        uni[b, 2] = torch.cos(phi)
-        uni[b, 3] = torch.sin(phi)
-        if cfg.russian_roulette and 2 <= b < cfg.bounces - 1:
-            uni[b, 4] = _rr_uniform(rng.fold_in(kb, 3), cfg, spp, h, W, row0,
-                                    to_blocks, device)
-        else:
-            uni[b, 4] = 1.0
-    su1, su2 = _sky_uniforms(cfg, k_bounce, uniform)
+    _, from_blocks = _block_permutes(h, W, spp, blocked)
+    uni = bounce_rows(k_bounce, cfg, h, row0, blocked, device)
+    su1, su2 = _sky_uniforms(cfg, k_bounce,
+                             lambda k: draw(_uniform(k, N, device)))
     return ro, rd, uni, su1, su2, from_blocks
 
 
@@ -451,12 +519,17 @@ def progressive_step(state: RenderState, frame: torch.Tensor) -> RenderState:
 
 class Renderer:
     """Stateful renderer around the pure functions: holds (scene, camera,
-    config) on ``device``, accumulates progressively, resets on
-    invalidation."""
+    config) on ``device`` — the card unless the caller asks for the CPU
+    (``device="cpu"``, where every kernel runs its plain version) —
+    accumulates progressively, resets on invalidation."""
 
     def __init__(self, scene: Scene, camera: Camera, config: RenderConfig,
-                 accel=None, seed: int = 0, device="cpu"):
+                 accel=None, seed: int = 0, device="cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Renderer(device='cuda'): torch sees no CUDA device; pass "
+                "device='cpu' to render with the plain versions")
         self.camera = camera
         self.config = config
         self._key = rng.key(seed)

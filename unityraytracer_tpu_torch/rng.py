@@ -8,9 +8,13 @@ to draw the very same uniforms as the JAX package.
 
 A key is a host ``numpy`` array of shape (2,) and dtype uint32 — the same
 words ``jax.random.key_data`` returns — so key derivation never touches the
-device. ``uniform`` evaluates the hash on a torch device. Its uint32
-arithmetic runs in int64 tensors masked with 0xFFFFFFFF, because torch's
-uint32 coverage is thin; the same code runs on CPU and CUDA tensors.
+device. ``uniform`` evaluates the hash on a torch device: for a CUDA device
+in one launch of the threefry kernel (``csrc/uniform_kernel.cu``), for the
+CPU through its plain version ``uniform_plain``, whose uint32 arithmetic
+runs in int64 tensors masked with 0xFFFFFFFF (torch's uint32 coverage is
+thin). ``bounce_keys`` derives the per-bounce keys of the path kernel's
+uniform rows on the host, for the kernel that draws them
+(``render.bounce_rows``).
 
 Reference: ``jax/_src/prng.py`` — ``threefry_2x32``,
 ``_threefry_split_foldlike``, ``_threefry_fold_in``,
@@ -25,6 +29,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import _build
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -36,9 +42,9 @@ def _rotl(x, r: int):
 def threefry2x32(k1, k2, x1, x2):
     """Threefry-2x32 (20 rounds) on uint32 words held in wider integers.
 
-    ``k1``/``k2`` are Python ints; ``x1``/``x2`` are int64 torch tensors or
-    uint64 numpy arrays with values below 2**32. Returns the two output words
-    in the same container type."""
+    ``k1``/``k2`` are Python ints; ``x1``/``x2`` are Python ints, int64
+    torch tensors or uint64 numpy arrays with values below 2**32. Returns
+    the two output words in the same container type."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & MASK
     x2 = (x2 + ks[1]) & MASK
@@ -74,11 +80,22 @@ def split(key_: np.ndarray, num: int = 2) -> np.ndarray:
 
 
 def fold_in(key_: np.ndarray, data: int) -> np.ndarray:
-    """``jax.random.fold_in``: threefry(key, (0, data mod 2**32))."""
+    """``jax.random.fold_in``: threefry(key, (0, data mod 2**32)), hashed
+    on Python ints (a frame folds in dozens of keys on the host)."""
     k1, k2 = _words(key_)
-    b1, b2 = threefry2x32(k1, k2, np.zeros(1, np.uint64),
-                          np.array([int(data) & MASK], np.uint64))
-    return np.array([b1[0], b2[0]], np.uint32)
+    b1, b2 = threefry2x32(k1, k2, 0, int(data) & MASK)
+    return np.array([b1, b2], np.uint32)
+
+
+def bounce_keys(k_bounce: np.ndarray, bounces: int) -> np.ndarray:
+    """(bounces, 4, 2) uint32 keys ``fold_in(fold_in(k_bounce, b), row)``
+    of the uniform rows u_r, u1, u2 and the roulette draw of each bounce."""
+    out = np.empty((bounces, 4, 2), np.uint32)
+    for b in range(bounces):
+        kb = fold_in(k_bounce, b)
+        for row in range(4):
+            out[b, row] = fold_in(kb, row)
+    return out
 
 
 def random_bits(key_: np.ndarray, shape: Sequence[int],
@@ -92,10 +109,31 @@ def random_bits(key_: np.ndarray, shape: Sequence[int],
     return (b1 ^ b2).reshape(tuple(shape))
 
 
-def uniform(key_: np.ndarray, shape: Sequence[int],
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in [0, 1) float32: the top 23
-    bits as the mantissa of a float in [1, 2), minus 1."""
+def uniform_plain(key_: np.ndarray, shape: Sequence[int],
+                  device=None) -> torch.Tensor:
+    """Plain version of ``uniform``: the int64 torch hash of
+    ``random_bits``, the top 23 bits as the mantissa of a float in [1, 2),
+    minus 1."""
     bits = random_bits(key_, shape, device)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def uniform(key_: np.ndarray, shape: Sequence[int],
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in [0, 1) float32 on ``device``
+    (the CPU when None): the threefry kernel for a CUDA device, the plain
+    version for the CPU; bit for bit the same floats."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cpu":
+        return uniform_plain(key_, shape, device)
+    if device.type != "cuda":
+        raise ValueError(f"no threefry kernel for device {device}")
+    k1, k2 = _words(key_)
+    n = math.prod(shape)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    code = _build.lib().urt_uniform(k1, k2, out.data_ptr(), n,
+                                    _build.stream_ptr(device))
+    _build.LAUNCHES["uniform"] += 1
+    _build.check(code, "uniform")
+    return out
