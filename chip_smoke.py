@@ -8,7 +8,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the kernel build from ``unityraytracer_tpu_torch/csrc`` (nvcc, sm_90a);
 3. each CUDA kernel against its plain PyTorch version on the same inputs:
-   env bit-identical on 2,073,600 random texels of the bench sky; the
+   the sky-tap kernel (draws, texel pick, fetch, decode and compose in one
+   launch) bit-identical in both fetch modes, on the main path's own
+   1920x1080 x 8 path-kernel output and on 2,073,600 random directions
+   with the pick's edge cases, with the draws at the ray index, at a
+   ray_index row and at the block slots of a pixel-order lattice; the
    threefry kernels bit-identical to their plain versions (``urt_uniform``
    on 2,073,600 and 10,368,000 counters; ``urt_bounce_rows`` at the main
    path's 1920x1080 x 8 with ``rr_group="step"``, at the quality preset's
@@ -23,50 +27,53 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. the main path: ``Renderer(bench_scene(100_000), RenderConfig(1920, 1080,
    spp=1, bounces=8, tracer="pallas", wavefront=True, rr_group="step"),
    device="cuda")`` with bench.py's camera — a warm-up step, then timed
-   steps whose launch counts must show the path and env kernels ran, with
+   steps whose launch counts must show the path, sky-tap and threefry
+   kernels ran (one sky-tap and four ``urt_uniform`` launches a frame), with
    a finite image; then one frame through the bounce-loop entry point
    (megakernel=False), counted apart, which must launch the closest-hit
    kernel; the main path's layers timed alone (camera rays, uniform rows,
-   path kernel, sky tap, compose), and its device busy share and device
-   launches per frame over a profiled window of three frames;
+   path kernel, sky tap with its compose, accumulation), and its device
+   busy share and device launches per frame over a profiled window of
+   three frames, printed beside the count before the fused sky tap;
 5. the oracle gate: the main path at 192x96 x 4 bounces against
    tracer="brute" at the same seed, RMSE < 1e-3;
 6. the other configurations of the megakernel frame, each driven through
    ``Renderer(..., device="cuda")`` with the launch counts set to 0 just
    before it and read just after:
    a. the quality preset: ``fixtures.sample_scene()`` at 1920x1080, spp 25,
-      10 bounces, ``spp_chunk=5`` (5 path and 5 env launches a frame), a
-      warm-up and two timed frames, peak device memory;
+      10 bounces, ``spp_chunk=5`` (5 path and 5 sky-tap launches a frame),
+      a warm-up and two timed frames, peak device memory;
    b. the bounce split on the main path's cell (``split_bounce=2,
-      split_frac=0.125``): one frame within 1e-5 of the unsplit frame of
-      the same key, then 15 ``step(1)`` frames of each in turns, the host
-      waits of one split step, and the cost of its remainder pass;
+      split_frac=0.125``, three sky-tap launches a frame): one frame within
+      1e-5 of the unsplit frame of the same key, then 15 ``step(1)`` frames
+      of each in turns, the host waits of one split step, and the cost of
+      its remainder pass;
    c. ``dispatch_bands=5`` on the same cell: one step bit-equal to the
       manual composition of its five bands under the key chain;
    d. ``cuda_env.ENV_IMPL = "bf16"``: one frame bit-equal to the default
-      impl's, through the byte-plane kernel;
+      impl's, through one launch of the sky-tap kernel's byte-plane fetch;
    and two small checks: the split's overflow regime at 192x96 (survivors
    past the compact buffer) within 1e-5 of unsplit, and a chunked frame at
    192x96 (spp 5, ``spp_chunk=2``) against its spp-weighted sub-frames.
 
-Phase 3 also holds the byte-plane env kernel against its plain version (bit
-for bit, the same 2,073,600 texels) and the path kernel's 16 resume-state
-rows against the plain version's (bit for bit, at 192x96 x 4 and on the
-1080p x 8 subset with two bounces).
+Phase 3 also holds the path kernel's 16 resume-state rows against the plain
+version's (bit for bit, at 192x96 x 4 and on the 1080p x 8 subset with two
+bounces).
 
 The line before the last is a JSON object with each kernel's launches in
-the run of the path that uses it (the main path for the path, env and
-threefry kernels; 0 for the closest-hit kernel, whose count from the
-megakernel=False frame stands under ``launches_megakernel_false``; the
-bf16 frame for the byte-plane kernel), the counts of every path under
-``launches_by_path``, its error against the plain version, both times
-(``shape`` and ``plain_shape`` say at what size), ``bound_ms``, the least
-time the card could take for the kernel's work at ``shape`` (the larger of
-its bytes over 3.35 TB/s and its operations over the peak rate of their
-type, ``bound_by`` naming which), and ``library_ms``, null: no single
-PyTorch call computes any of these functions. The last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-and prints no result.
+the run of the path that uses it (the main path for the path, sky-tap
+("env") and threefry kernels; 0 for the closest-hit kernel, whose count
+from the megakernel=False frame stands under
+``launches_megakernel_false``; the bf16 frame for the sky tap's byte-plane
+fetch, "env_planes"), the counts of every path under ``launches_by_path``,
+its error against the plain version, both times (``shape`` and
+``plain_shape`` say at what size), ``bound_ms``, the least time the card
+could take for the kernel's work at ``shape`` (the larger of its bytes over
+3.35 TB/s and its operations over the peak rate of their type,
+``bound_by`` naming which), and ``library_ms``, null: no single PyTorch
+call computes any of these functions. The last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits non-zero and prints no
+result.
 """
 
 import json
@@ -89,6 +96,18 @@ SPLIT = dict(split_bounce=2, split_frac=0.125)
 # The threefry kernels' log2, cos and sin rows against torch's on the card,
 # in ulp (0: bit for bit).
 ROWS_ULP = 0.0
+
+# Directions at the edges of the sky tap's texel pick: the poles with
+# signed zeros, beyond the clamp, the seam x = +-0 with z > 0, the opposite
+# seam, an axis.
+SKY_EDGES = [(0.0, 1.0, 0.0), (-0.0, 1.0, -0.0), (0.0, -1.0, -0.0),
+             (-0.0, -1.0, 0.0), (0.0, 1.0000001, 0.0), (0.0, -1.0000001, 0.0),
+             (0.0, 0.3, 0.9), (-0.0, 0.3, 0.9), (0.0, 0.0, 1.0),
+             (-0.0, 0.0, 1.0), (0.0, 0.0, -1.0), (-0.0, 0.0, -1.0),
+             (1.0, 0.0, 0.0), (-1.0, 0.0, 0.0)]
+# Device launches a frame of the main path before the fused sky tap
+# (PERF.md, the profiled window of the previous slice's runs).
+LAUNCHES_BEFORE = 161.3
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): memory, and
 # float32 outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz). The
@@ -171,21 +190,16 @@ def main() -> int:
     from unityraytracer_tpu_torch.models import fixtures
     from unityraytracer_tpu_torch.ops import cuda_env
     from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
-    from unityraytracer_tpu_torch.ops.cuda_env import (byte_planes,
-                                                       env_lookup,
-                                                       env_lookup_planes,
-                                                       env_lookup_planes_plain,
-                                                       env_lookup_plain)
+    from unityraytracer_tpu_torch.ops.cuda_env import sky_tap, sky_tap_plain
     from unityraytracer_tpu_torch.ops.cuda_path import (path_trace,
                                                         path_trace_plain)
     from unityraytracer_tpu_torch.ops.cuda_trace import (KernelScene,
                                                          closest_hit_plain,
                                                          trace_hits)
-    from unityraytracer_tpu_torch.ops import vec
     from unityraytracer_tpu_torch.render import (RenderState, _camera_rays,
-                                                 _env_tap, bounce_rows,
+                                                 _env_tap, _frame_inputs,
+                                                 _sky_keys, bounce_rows,
                                                  bounce_rows_plain,
-                                                 mega_inputs,
                                                  progressive_step,
                                                  render_frame, render_sample,
                                                  split_capacity)
@@ -230,64 +244,91 @@ def main() -> int:
     cam_small = fixtures.bench_camera(aspect=2.0)
     cam_main = fixtures.bench_camera(aspect=MAIN["width"] / MAIN["height"])
 
-    # 3a. Env kernel vs plain: bit-identical at the main path's ray count.
-    H, W = scene_np.skybox.shape[:2]
-    n_env = MAIN["width"] * MAIN["height"]
-    g = torch.Generator(device=dev).manual_seed(0)
-    yn = torch.randint(0, H, (n_env,), generator=g, device=dev,
-                       dtype=torch.int32)
-    xn = torch.randint(0, W, (n_env,), generator=g, device=dev,
-                       dtype=torch.int32)
-    got = env_lookup(scene.skybox_rgbe, yn, xn, W)
-    want = env_lookup_plain(scene.skybox_rgbe, yn, xn, W)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-            raise AssertionError("env kernel differs from its plain version")
-    kernels["env"] = dict(
-        route="cuda", source="unityraytracer_tpu_torch/csrc/env_kernel.cu",
-        replaces="unityraytracer_tpu/ops/pallas_env.py:88",
-        max_abs_err=0.0, shape=[n_env], plain_shape=[n_env],
-        ms=cuda_ms(lambda: env_lookup(scene.skybox_rgbe, yn, xn, W), 20, 3),
-        plain_ms=cuda_ms(lambda: env_lookup_plain(scene.skybox_rgbe, yn, xn,
-                                                  W), 20, 3))
-    # y and x read, rgb written, the packed table read once.
-    kernels["env"]["bound_ms"], kernels["env"]["bound_by"] = bound(
-        n_env * (8 + 12) + scene.skybox_rgbe.numel() * 4)
-    log("env:", json.dumps(kernels["env"]))
-
-    # 3a'. Byte-plane env kernel vs plain, bit-identical on the same texels
-    # (and to the packed-word kernel's result).
-    planes = byte_planes(scene.skybox_rgbe, H, W)
-    got = env_lookup_planes(planes, yn, xn, W)
-    want = env_lookup_planes_plain(planes, yn, xn, W)
-    words = env_lookup(scene.skybox_rgbe, yn, xn, W)
-    torch.cuda.synchronize()
-    for a, b, c in zip(got, want, words):
-        if not (torch.equal(a.view(torch.int32), b.view(torch.int32))
-                and torch.equal(a.view(torch.int32), c.view(torch.int32))):
-            raise AssertionError("byte-plane env kernel differs from its "
-                                 "plain version or the packed-word kernel")
-    kernels["env_planes"] = dict(
-        route="cuda", source="unityraytracer_tpu_torch/csrc/env_kernel.cu",
-        replaces="unityraytracer_tpu/ops/pallas_env.py:63",
-        max_abs_err=0.0, shape=[n_env], plain_shape=[n_env],
-        ms=cuda_ms(lambda: env_lookup_planes(planes, yn, xn, W), 20, 3),
-        plain_ms=cuda_ms(lambda: env_lookup_planes_plain(planes, yn, xn, W),
-                         20, 3))
-    kernels["env_planes"]["bound_ms"], kernels["env_planes"]["bound_by"] = \
-        bound(n_env * (8 + 12) + planes.numel())
-    log("env_planes:", json.dumps(kernels["env_planes"]))
-    del yn, xn
-
-    # 3a''. The threefry kernels against their plain versions (int64 torch
-    # hashes), bit for bit: one row, and the path kernel's uniform rows.
+    # 3a. The sky-tap kernel vs its plain version, bit for bit, in both
+    # fetch modes: on the main path's own (9, N) path-kernel output at
+    # 1080p, and on random directions with the pick's edge cases in all
+    # three counter modes. Each side composes into its own copy of the
+    # radiance rows.
     def bits_equal(a, b):
         a = torch.as_tensor(a).float().contiguous()
         b = torch.as_tensor(b).float().contiguous()
         return a.shape == b.shape and torch.equal(a.view(torch.int32),
                                                   b.view(torch.int32))
 
+    hw = tuple(scene_np.skybox.shape[:2])
+    packed = scene.skybox_rgbe
+    n_env = MAIN["width"] * MAIN["height"]
+    cfg_m = RenderConfig(**MAIN)
+    ro, rd, uni, k_sky, _ = _frame_inputs(scene, cam_main, rng.key(8), cfg_m)
+    main_rows = path_trace(ks, ro, rd, uni, cfg_m)
+    _build.raise_on_overflow(dev)
+    sky_keys = _sky_keys(cfg_m, k_sky)
+    del ro, rd, uni
+    g = torch.Generator(device=dev).manual_seed(0)
+    d = torch.randn((3, n_env), generator=g, device=dev)
+    d = d / d.norm(dim=0, keepdim=True)
+    d[:, :len(SKY_EDGES)] = torch.tensor(SKY_EDGES, device=dev).T
+    edge_rows = (tuple(torch.rand((3, n_env), generator=g, device=dev)),
+                 tuple(torch.rand((3, n_env), generator=g, device=dev) * 2),
+                 tuple(d))
+    ray_index = torch.randint(0, 5 * n_env, (n_env,), generator=g,
+                              device=dev)
+    sky_cases = {
+        "main path 1080p output": (main_rows, {}),
+        "edge directions, counter i": (edge_rows, {}),
+        "edge directions, ray_index": (edge_rows, {"ray_index": ray_index}),
+        "edge directions, block slot": (
+            edge_rows, {"lattice": (MAIN["height"], MAIN["width"], 1)}),
+    }
+    by_impl, sky_err = {}, {"int8x8": 0.0, "bf16": 0.0}
+    for impl in ("int8x8", "bf16"):
+        for tag, ((rad, se, sd), kw) in sky_cases.items():
+            got = sky_tap(hw, packed, tuple(c.clone() for c in rad), se, sd,
+                          sky_keys, impl=impl, **kw)
+            want = sky_tap_plain(hw, packed, tuple(c.clone() for c in rad),
+                                 se, sd, sky_keys, impl=impl, **kw)
+            torch.cuda.synchronize()
+            same = bits_equal(torch.stack(got), torch.stack(want))
+            err = float((torch.stack(got) - torch.stack(want)).abs().max())
+            sky_err[impl] = max(sky_err[impl], err)
+            moved = float((torch.stack(got) != torch.stack(rad)).float()
+                          .mean())
+            log(f"sky tap [{impl}, {tag}]: {n_env} rays, bit-identical "
+                f"{same}, max abs err {err:.3e}, radiance changed on "
+                f"{moved:.4f}")
+            if not same:
+                raise AssertionError(f"sky-tap kernel differs from its plain "
+                                     f"version ({impl}, {tag})")
+            by_impl.setdefault(tag, []).append(got)
+    for tag, (a, b) in by_impl.items():
+        if not bits_equal(torch.stack(a), torch.stack(b)):
+            raise AssertionError(f"sky-tap fetch modes differ ({tag})")
+    del by_impl, got, want, edge_rows, d, ray_index
+    # Times on the main path's output; the compose goes into a scratch copy
+    # of the radiance, again at every launch.
+    rad_m, se_m, sd_m = main_rows
+    scratch = tuple(c.clone() for c in rad_m)
+    for name, impl, line, table_bytes in (
+            ("env", "int8x8", 88, packed.numel() * 4),
+            ("env_planes", "bf16", 63, packed.numel() * 4)):
+        kernels[name] = dict(
+            route="cuda", source="unityraytracer_tpu_torch/csrc/env_kernel.cu",
+            replaces=f"unityraytracer_tpu/ops/pallas_env.py:{line}",
+            max_abs_err=sky_err[impl], shape=[n_env], plain_shape=[n_env],
+            ms=cuda_ms(lambda: sky_tap(hw, packed, scratch, se_m, sd_m,
+                                       sky_keys, impl=impl), 20, 3),
+            plain_ms=cuda_ms(lambda: sky_tap_plain(hw, packed, scratch, se_m,
+                                                   sd_m, sky_keys, impl=impl),
+                             5, 1))
+        # Radiance, sky throughput and sky direction read, radiance
+        # written, the sky map read once; two threefry draws a ray.
+        kernels[name]["bound_ms"], kernels[name]["bound_by"] = bound(
+            n_env * 48 + table_bytes, n_env * 2 * OPS_DRAW, PEAK_I32)
+        log(f"{name}:", json.dumps(kernels[name]))
+    del main_rows, rad_m, se_m, sd_m, scratch
+
+    # 3a'. The threefry kernels against their plain versions (int64 torch
+    # hashes), bit for bit: one row, and the path kernel's uniform rows.
     for n in (n_env, 5 * n_env):
         key = rng.fold_in(rng.key(50), n)
         got = rng.uniform(key, (n,), device=dev)
@@ -310,7 +351,6 @@ def main() -> int:
         n_env * 4, n_env * OPS_DRAW, PEAK_I32)
     log("uniform:", json.dumps(kernels["uniform"]))
 
-    cfg_m = RenderConfig(**MAIN)
     qsub = RenderConfig(**QUALITY).replace(spp=QUALITY["spp_chunk"],
                                            spp_chunk=None)
     H_m = cfg_m.height
@@ -454,7 +494,7 @@ def main() -> int:
     # every value must agree bit for bit; the radiance must also meet the
     # repo's image bar, RMSE < 1e-3.
     def path_check(cfg, cam, key, stride, tag):
-        ro, rd, uni, _, _, _ = mega_inputs(scene, cam, key, cfg)
+        ro, rd, uni, _, _ = _frame_inputs(scene, cam, key, cfg)
         rk = path_trace(ks, ro, rd, uni, cfg)
         idx = torch.arange(0, ro[0].shape[0], stride, device=dev)
         sel = lambda v3: tuple(c[idx].contiguous() for c in v3)  # noqa: E731
@@ -479,7 +519,7 @@ def main() -> int:
     def state_check(cfg, cam, key, stride, nb, tag):
         """The 16 resume-state rows after ``nb`` bounces, kernel vs plain,
         bit for bit, dead rays included (zero energy where alive is 0)."""
-        ro, rd, uni, _, _, _ = mega_inputs(scene, cam, key, cfg)
+        ro, rd, uni, _, _ = _frame_inputs(scene, cam, key, cfg)
         *_, sk = path_trace(ks, ro, rd, uni[:nb], cfg, nb=nb, emit_state=True)
         idx = torch.arange(0, ro[0].shape[0], stride, device=dev)
         sel = lambda v3: tuple(c[idx].contiguous() for c in v3)  # noqa: E731
@@ -559,6 +599,12 @@ def main() -> int:
         if launches[k] < 1:
             raise AssertionError(f"kernel {k!r} never launched on the main "
                                  f"path: {launches}")
+    # One sky-tap launch a frame, and only the camera's four draws.
+    nf = len(frame_ms)
+    if launches["env"] != nf or launches["uniform"] != 4 * nf \
+            or launches["env_planes"] != 0:
+        raise AssertionError(f"main path: expected 1 sky-tap and 4 uniform "
+                             f"launches a frame, got {launches} in {nf}")
     by_path = {"main": launches}
     med = float(np.median(frame_ms))
     mrays = cfg_m.num_rays * cfg_m.bounces / med / 1e3
@@ -583,15 +629,13 @@ def main() -> int:
 
     # Where one main-path frame's time goes, layer by layer (CUDA events).
     fkey = rng.key(11)
-    ro, rd, uni, su1, su2, from_blocks = mega_inputs(scene, cam_main, fkey,
-                                                     cfg_m)
-    k_bounce = rng.split(fkey, 3)[2]
+    ro, rd, uni, k_bounce, from_blocks = _frame_inputs(scene, cam_main, fkey,
+                                                       cfg_m)
     rad, se, sd = path_trace(r.accel, ro, rd, uni, cfg_m)
-    sky = _env_tap(scene, cfg_m, sd, su1, su2)
+    scratch = tuple(c.clone() for c in rad)
 
-    def compose():
-        img = torch.stack([from_blocks(c).mean(dim=0) for c in
-                           vec.add(rad, vec.mul(se, sky))], dim=-1)
+    def accumulate():
+        img = torch.stack([from_blocks(c).mean(dim=0) for c in rad], dim=-1)
         return progressive_step(r.state, img)
 
     layers = {
@@ -600,15 +644,16 @@ def main() -> int:
             lambda a: a, dev), 10, 2),
         "uniform_rows": cuda_ms(lambda: bounce_rows(
             k_bounce, cfg_m, H_m, 0, True, dev), 10, 2),
-        "mega_inputs_whole": cuda_ms(
-            lambda: mega_inputs(scene, cam_main, fkey, cfg_m), 10, 2),
+        "rays_and_rows": cuda_ms(
+            lambda: _frame_inputs(scene, cam_main, fkey, cfg_m), 10, 2),
         "path_kernel": cuda_ms(lambda: path_trace(r.accel, ro, rd, uni, cfg_m),
                                5),
-        "sky_tap": cuda_ms(lambda: _env_tap(scene, cfg_m, sd, su1, su2), 5),
-        "compose_and_accumulate": cuda_ms(compose, 5),
+        "sky_tap": cuda_ms(lambda: _env_tap(scene, cfg_m, scratch, se, sd,
+                                            k_bounce), 5),
+        "accumulate": cuda_ms(accumulate, 5),
     }
     log("layers (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in layers.items()))
-    del ro, rd, uni, rad, se, sd, sky
+    del ro, rd, uni, rad, se, sd, scratch
 
     # Device busy share: wall time and device time of one window of three
     # main-path frames, both read under torch.profiler (whose own per-launch
@@ -631,6 +676,8 @@ def main() -> int:
         f"{busy_us / 1e3:.3f} ms over {len(spans)} device events "
         f"({len(spans) / 3:.1f} a frame), busy share "
         f"{busy_us / 1e3 / wall_ms:.4f}")
+    log(f"device launches a frame: before {LAUNCHES_BEFORE} (PERF.md), now "
+        f"{len(spans) / 3:.1f}")
 
     # 5. Oracle gate at 192x96 x 4 bounces, and the alive fraction at 8.
     key = rng.key(42)
@@ -673,9 +720,11 @@ def main() -> int:
     if not (np.isfinite(img).all() and img.max() > 0):
         raise AssertionError("quality preset: non-finite or black image")
     for la in q_launch:
-        if la["path"] != n_chunks or la["env"] != n_chunks:
+        if la["path"] != n_chunks or la["env"] != n_chunks \
+                or la["uniform"] != 4 * n_chunks:
             raise AssertionError(f"quality preset: expected {n_chunks} path "
-                                 f"and env launches a frame, got {la}")
+                                 f"and sky-tap launches and {4 * n_chunks} "
+                                 f"uniform launches a frame, got {la}")
     by_path["quality"] = q_launch[-1]
     q_rays = qcfg.num_rays * qcfg.bounces
     log(f"quality preset 1920x1080 spp 25 x 10 bounces (spp_chunk 5) on "
@@ -686,21 +735,21 @@ def main() -> int:
         f"{peak_gb:.3f} GiB; launches a frame {q_launch[-1]}")
     # Where one chunk's time goes (CUDA events, each layer alone).
     qkey = rng.key(13)
-    ro, rd, uni, su1, su2, _ = mega_inputs(rq.scene, cam_q, qkey, qsub)
-    _, _, sd = path_trace(rq.accel, ro, rd, uni, qsub)
+    ro, rd, uni, qk_bounce, _ = _frame_inputs(rq.scene, cam_q, qkey, qsub)
+    rad, se, sd = path_trace(rq.accel, ro, rd, uni, qsub)
     q_layers = {
         "rays_and_uniform_rows": cuda_ms(
-            lambda: mega_inputs(rq.scene, cam_q, qkey, qsub), 3),
+            lambda: _frame_inputs(rq.scene, cam_q, qkey, qsub), 3),
         "uniform_rows": cuda_ms(lambda: bounce_rows(
-            rng.split(qkey, 3)[2], qsub, qsub.height, 0, True, dev), 3),
+            qk_bounce, qsub, qsub.height, 0, True, dev), 3),
         "path_kernel": cuda_ms(lambda: path_trace(rq.accel, ro, rd, uni,
                                                   qsub), 3),
-        "sky_tap": cuda_ms(lambda: _env_tap(rq.scene, qsub, sd, su1, su2),
-                           3),
+        "sky_tap": cuda_ms(lambda: _env_tap(rq.scene, qsub, rad, se, sd,
+                                            qk_bounce), 3),
     }
     log("quality preset, one chunk of 10.4M rays, layers (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in q_layers.items()))
-    del rq, ro, rd, uni, su1, su2, sd
+    del rq, ro, rd, uni, rad, se, sd
 
     # 6b. The bounce split on the main path's cell.
     scfg = cfg_m.replace(**SPLIT)
@@ -714,7 +763,7 @@ def main() -> int:
         f"max |diff| {split_err:.3e}; launches {la}")
     if not (torch.isfinite(split).all() and split_err <= 1e-5):
         raise AssertionError(f"split frame differs from unsplit: {split_err}")
-    ro, rd, uni, su1, su2, _ = mega_inputs(scene, cam_main, fkey, cfg_m)
+    ro, rd, uni, k_bounce, _ = _frame_inputs(scene, cam_main, fkey, cfg_m)
     *_, st = path_trace(r.accel, ro, rd, uni[:2], cfg_m, nb=2,
                         emit_state=True)
     n_alive = int(st[9].sum())
@@ -723,15 +772,16 @@ def main() -> int:
     rem_ms = cuda_ms(lambda: path_trace(
         r.accel, tuple(st[0:3]), tuple(st[3:6]), uni[2:], cfg_m, b0=2, nb=6,
         energy0=tuple(st[6:9]), alive0=dead), 10, 2)
-    _, _, sd_rem = path_trace(r.accel, tuple(st[0:3]), tuple(st[3:6]),
-                              uni[2:], cfg_m, b0=2, nb=6,
-                              energy0=tuple(st[6:9]), alive0=dead)
-    rem_sky_ms = cuda_ms(lambda: _env_tap(scene, cfg_m, sd_rem, su1, su2),
-                         10, 2)
+    rad_rem, se_rem, sd_rem = path_trace(r.accel, tuple(st[0:3]),
+                                         tuple(st[3:6]), uni[2:], cfg_m, b0=2,
+                                         nb=6, energy0=tuple(st[6:9]),
+                                         alive0=dead)
+    rem_sky_ms = cuda_ms(lambda: _env_tap(scene, cfg_m, rad_rem, se_rem,
+                                          sd_rem, k_bounce), 10, 2)
     log(f"split: {n_alive} of {cfg_m.num_rays} rays alive after bounce 2, "
         f"compact buffer {cap}; remainder pass with no overflow: path "
         f"kernel {rem_ms:.3f} ms + full-width sky tap {rem_sky_ms:.3f} ms")
-    del ro, rd, uni, su1, su2, st, sd_rem, dead
+    del ro, rd, uni, st, rad_rem, se_rem, sd_rem, dead
     rs = Renderer(scene_np, cam_main, scfg, accel=r.accel, seed=0,
                   device="cuda")
     ru = Renderer(scene_np, cam_main, cfg_m, accel=r.accel, seed=0,
@@ -764,9 +814,13 @@ def main() -> int:
         ru.step(1)
         ab["unsplit"].append(ru.stats["ms_per_frame"])
     by_path["split"] = split_launch
-    if split_launch["path"] != 45 or split_launch["env"] != 45:
-        raise AssertionError(f"split frames: expected 3 path and 3 env "
-                             f"launches each, got {split_launch} in 15")
+    # Three sky taps a split frame: the compact pass's, the remainder
+    # pass's and the full-width one of the first segment's misses.
+    if split_launch["path"] != 45 or split_launch["env"] != 45 \
+            or split_launch["uniform"] != 60:
+        raise AssertionError(f"split frames: expected 3 path, 3 sky-tap "
+                             f"and 4 uniform launches each, got "
+                             f"{split_launch} in 15")
     log("split A/B, 15 step(1) frames each in turns: " + "; ".join(
         f"{k} median {np.median(v):.2f} ms (min {min(v):.2f}, max "
         f"{max(v):.2f}), {cfg_m.num_rays * cfg_m.bounces / np.median(v) / 1e3:.2f}"
@@ -813,14 +867,14 @@ def main() -> int:
     same = bits_equal(r_bf.state.accum, r_def.state.accum)
     log(f"bf16 impl frame: bit-equal to the default impl {same}; "
         f"launches {la}")
-    if not (same and la["env_planes"] >= 1 and la["env"] == 0):
+    if not (same and la["env_planes"] == 1 and la["env"] == 0):
         raise AssertionError(f"bf16 impl frame: equal {same}, launches {la}")
     del r_def, r_bf
 
     # Small checks: the split's overflow regime, and chunk composition.
     ocfg = cfg_s.replace(split_bounce=1, split_frac=1e-9)
     okey = rng.key(31)
-    ro, rd, uni, _, _, _ = mega_inputs(scene, cam_small, okey, cfg_s)
+    ro, rd, uni, _, _ = _frame_inputs(scene, cam_small, okey, cfg_s)
     *_, st = path_trace(ks, ro, rd, uni[:1], cfg_s, nb=1, emit_state=True)
     n_alive, cap = int(st[9].sum()), split_capacity(ro[0].shape[0], 1e-9)
     a = render_frame(scene, cfg_s, cam_small, okey, ks)

@@ -12,8 +12,8 @@ import torch
 from unityraytracer_tpu_torch import _build
 from unityraytracer_tpu_torch.models import fixtures
 from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
-from unityraytracer_tpu_torch.ops.cuda_env import (byte_planes, env_lookup,
-                                                   env_lookup_planes)
+from unityraytracer_tpu_torch import rng
+from unityraytracer_tpu_torch.ops.cuda_env import byte_planes, sky_tap
 from unityraytracer_tpu_torch.ops.cuda_path import path_trace
 from unityraytracer_tpu_torch.ops.cuda_trace import KernelScene, trace_hits
 from unityraytracer_tpu_torch.config import RenderConfig
@@ -52,8 +52,10 @@ def test_cpu_tensors_never_touch_the_kernels():
     uni = torch.full((2, 5, 4), 0.5)
     path_trace(ks, ro, rd, uni, RenderConfig(bounces=2))
     packed = ks.scene.skybox_rgbe
-    idx = torch.zeros(4, dtype=torch.int32)
-    env_lookup(packed, idx, idx, 512)
+    H, W = ks.scene.skybox.shape[:2]
+    rad = tuple(torch.zeros(4) for _ in range(3))
+    sky_tap((H, W), packed, rad, rd, rd, (rng.key(1), rng.key(2)))
+    assert all(torch.isfinite(r).all() for r in rad)
     assert _build.LAUNCHES == before
 
 
@@ -86,8 +88,8 @@ def test_kernel_scene_pointers_and_device_errors():
     with pytest.raises(ValueError):
         trace_hits(ks, meta, meta)
     with pytest.raises(ValueError):
-        env_lookup(torch.empty(8, dtype=torch.int32, device="meta"),
-                   *(torch.empty(4, dtype=torch.int32, device="meta"),) * 2, 4)
+        sky_tap((2, 4), torch.empty(8, dtype=torch.int32, device="meta"),
+                meta, meta, meta, (rng.key(0), rng.key(1)))
     with pytest.raises(TypeError):
         bad = scene.to("cpu")
         bad.spheres.radius = bad.spheres.radius.double()
@@ -104,16 +106,18 @@ def test_planes_and_state_entry_points_route_by_device():
     before = dict(_build.LAUNCHES)
     planes = byte_planes(ks.scene.skybox_rgbe, H, W)
     assert planes.dtype == torch.uint8 and tuple(planes.shape) == (H, 4 * W)
-    idx = torch.zeros(4, dtype=torch.int32)
-    rgb = env_lookup_planes(planes, idx, idx, W)
-    assert all(c.shape == (4,) for c in rgb)
     ro = tuple(torch.zeros(4) + c for c in (0.0, 1.0, -10.0))
     rd = tuple(torch.zeros(4) + c for c in (0.0, -1.0, 0.0))   # ground
+    keys = (rng.key(1), rng.key(2))
+    rad = sky_tap((H, W), ks.scene.skybox_rgbe,
+                  tuple(torch.zeros(4) for _ in range(3)), rd, rd, keys,
+                  impl="bf16")
+    assert all(c.shape == (4,) for c in rad)
     out = path_trace(ks, ro, rd, torch.full((2, 5, 4), 0.5),
                      RenderConfig(bounces=2), emit_state=True)
     assert len(out) == 4 and tuple(out[3].shape) == (16, 4)
     assert _build.LAUNCHES == before
-    meta = torch.empty((H, 4 * W), dtype=torch.uint8, device="meta")
+    meta = tuple(torch.empty(4, device="meta") for _ in range(3))
     with pytest.raises(ValueError):
-        env_lookup_planes(meta, *(torch.empty(4, dtype=torch.int32,
-                                              device="meta"),) * 2, W)
+        sky_tap((H, W), torch.empty(H * W, dtype=torch.int32, device="meta"),
+                meta, meta, meta, keys, impl="bf16")

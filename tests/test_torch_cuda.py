@@ -5,9 +5,13 @@ imports no JAX, so it also runs on a machine without it):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: both env kernels and both threefry kernels are bit-identical
-(the uniform rows' log2, cos and sin are the CUDA math library's, as in
-torch's CUDA kernels); the closest-hit kernel runs
+Tolerances: the sky-tap kernel, in both fetch modes and all three counter
+modes, and both threefry kernels are bit-identical to their plain versions
+(the pick's acos and atan2 and the uniform rows' log2, cos and sin are the
+CUDA math library's, as in torch's CUDA kernels, and the divisions are IEEE
+divisions on both sides), and a frame composed by the sky-tap kernel equals
+the frame composed by the plain gather route bit for bit; the closest-hit
+kernel runs
 the plain version's MT97 in the same IEEE order (built with -fmad=false), so
 winners agree except on exact-tie reorderings and t to 1e-5 relative, and
 its box and triangle test counts equal those of the per-ray traversal twin
@@ -28,10 +32,7 @@ from unityraytracer_tpu_torch import RenderConfig, Renderer, _build, rng
 from unityraytracer_tpu_torch.models import fixtures
 from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
 from unityraytracer_tpu_torch.ops import cuda_env
-from unityraytracer_tpu_torch.ops.cuda_env import (byte_planes, env_lookup,
-                                                   env_lookup_planes,
-                                                   env_lookup_planes_plain,
-                                                   env_lookup_plain)
+from unityraytracer_tpu_torch.ops.cuda_env import sky_tap, sky_tap_plain
 from unityraytracer_tpu_torch.ops.cuda_path import path_trace, path_trace_plain
 from unityraytracer_tpu_torch.ops.cuda_trace import (KernelScene,
                                                      closest_hit_plain,
@@ -64,20 +65,53 @@ def _rays(dev, n, seed):
     return tuple(ro), tuple(rd)
 
 
-def test_env_kernel_bit_identical(dev):
+# Directions at the edges of the texel pick: the poles with signed zeros,
+# beyond the clamp, the seam x = +-0 with z > 0, the opposite seam.
+EDGES = [(0.0, 1.0, 0.0), (-0.0, 1.0, -0.0), (0.0, -1.0, -0.0),
+         (0.0, 1.0000001, 0.0), (0.0, -1.0000001, 0.0), (0.0, 0.3, 0.9),
+         (-0.0, 0.3, 0.9), (0.0, 0.0, 1.0), (-0.0, 0.0, 1.0),
+         (0.0, 0.0, -1.0), (-0.0, 0.0, -1.0), (1.0, 0.0, 0.0)]
+# Counter modes of the sky draws: (ray_index, lattice) for 100,352 rays.
+SKY_MODES = {"identity": (False, None), "ray_index": (True, None),
+             "block_slot": (False, (56, 896, 2))}
+
+
+def _sky_inputs(dev, seed, with_index):
+    n = 2 * 56 * 896
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = torch.randn((3, n), generator=g, device=dev)
+    d = d / d.norm(dim=0, keepdim=True)
+    d[:, :len(EDGES)] = torch.tensor(EDGES, device=dev).T
+    rad = torch.rand((3, n), generator=g, device=dev)
+    sky_e = torch.rand((3, n), generator=g, device=dev) * 2
+    idx = torch.randint(0, 4 * n, (n,), generator=g, device=dev) \
+        if with_index else None
+    return tuple(rad), tuple(sky_e), tuple(d), idx
+
+
+def _sky_check(dev, impl, mode, seed):
     scene = fixtures.bench_scene(2000).to(dev)
-    H, W = scene.skybox.shape[:2]
-    g = torch.Generator(device=dev).manual_seed(1)
-    yn = torch.randint(0, H, (100_003,), generator=g, device=dev,
-                       dtype=torch.int32)
-    xn = torch.randint(0, W, (100_003,), generator=g, device=dev,
-                       dtype=torch.int32)
-    before = _build.LAUNCHES["env"]
-    got = env_lookup(scene.skybox_rgbe, yn, xn, W)
-    assert _build.LAUNCHES["env"] == before + 1
-    want = env_lookup_plain(scene.skybox_rgbe, yn, xn, W)
-    for a, b in zip(got, want):
+    hw = scene.skybox.shape[:2]
+    with_index, lattice = SKY_MODES[mode]
+    rad, sky_e, sky_d, idx = _sky_inputs(dev, seed, with_index)
+    keys = (rng.key(seed), rng.key(seed + 1))
+    name = "env_planes" if impl == "bf16" else "env"
+    before = _build.LAUNCHES[name]
+    got = sky_tap(hw, scene.skybox_rgbe, tuple(r.clone() for r in rad), sky_e,
+                  sky_d, keys, ray_index=idx, lattice=lattice, impl=impl)
+    assert _build.LAUNCHES[name] == before + 1
+    want = sky_tap_plain(hw, scene.skybox_rgbe, tuple(r.clone() for r in rad),
+                         sky_e, sky_d, keys, ray_index=idx, lattice=lattice,
+                         impl=impl)
+    for a, b, r in zip(got, want, rad):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert (a != r).float().mean().item() > 0.9
+    return got
+
+
+@pytest.mark.parametrize("mode", list(SKY_MODES))
+def test_env_kernel_bit_identical(dev, mode):
+    _sky_check(dev, "int8x8", mode, 1)
 
 
 @pytest.mark.parametrize("name", ["scene1", "bench_scene"])
@@ -131,23 +165,12 @@ def test_golden_scene1_on_cuda(dev, tracer, mega):
     assert rmse(r.image, golden) < 1e-3
 
 
-def test_env_planes_kernel_bit_identical(dev):
-    scene = fixtures.bench_scene(2000).to(dev)
-    H, W = scene.skybox.shape[:2]
-    planes = byte_planes(scene.skybox_rgbe, H, W)
-    g = torch.Generator(device=dev).manual_seed(4)
-    yn = torch.randint(0, H, (100_003,), generator=g, device=dev,
-                       dtype=torch.int32)
-    xn = torch.randint(0, W, (100_003,), generator=g, device=dev,
-                       dtype=torch.int32)
-    before = _build.LAUNCHES["env_planes"]
-    got = env_lookup_planes(planes, yn, xn, W)
-    assert _build.LAUNCHES["env_planes"] == before + 1
-    want = env_lookup_planes_plain(planes, yn, xn, W)
-    words = env_lookup_plain(scene.skybox_rgbe, yn, xn, W)
-    for a, b, c in zip(got, want, words):
+@pytest.mark.parametrize("mode", list(SKY_MODES))
+def test_env_planes_kernel_bit_identical(dev, mode):
+    planes = _sky_check(dev, "bf16", mode, 4)
+    words = _sky_check(dev, "int8x8", mode, 4)
+    for a, b in zip(planes, words):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
 
 
 def _scene1_rays(dev, cfg, seed):
@@ -225,6 +248,26 @@ def test_bf16_impl_frame_bit_identical(dev, monkeypatch):
     before = _build.LAUNCHES["env_planes"]
     b = render_frame(scene, cfg, cam, rng.key(2), ks)
     assert _build.LAUNCHES["env_planes"] == before + 1
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("frame", ["mega", "split", "brute_block_slots"])
+def test_fused_sky_frame_equals_plain_route(dev, frame):
+    # sky_mxu=False composes the same frame from drawn sky rows, the torch
+    # pick and gather, and a torch compose; the sky-tap kernel must give
+    # the same bits on each path that reaches it.
+    kw = {"mega": dict(tracer="pallas"),
+          "split": dict(tracer="pallas", split_bounce=2, split_frac=0.25),
+          "brute_block_slots": dict(tracer="brute")}[frame]
+    cfg = RenderConfig(width=64, height=48, spp=2, bounces=4, **kw)
+    scene, ks, cam, _ = _scene1_rays(dev, cfg, 0)
+    before = _build.LAUNCHES["env"]
+    a = render_frame(scene, cfg, cam, rng.key(6), ks)
+    launched = _build.LAUNCHES["env"] - before
+    b = render_frame(scene, cfg.replace(sky_mxu=False), cam, rng.key(6), ks)
+    assert launched == (3 if frame == "split" else 1)
+    assert _build.LAUNCHES["env"] - before == launched
+    assert torch.isfinite(a).all() and a.max() > 0
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 

@@ -32,6 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
 
+# "env" and "env_planes" count the sky-tap kernel by its fetch: the packed
+# words or the byte planes.
 LAUNCHES = {"path": 0, "trace": 0, "env": 0, "env_planes": 0, "uniform": 0,
             "bounce_rows": 0}
 # Bounces whose keys fit BounceArgs (URT_MAX_BOUNCES in uniform_kernel.cu).
@@ -146,13 +148,12 @@ def lib() -> ctypes.CDLL:
         so.urt_trace_hits.argtypes = [p, p, p, p, p, p, p, i, p, p]
         so.urt_path_trace.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
                                       i, p, p]
-        so.urt_env_lookup.argtypes = [p, p, p, p, i, p, i, p]
-        so.urt_env_lookup_planes.argtypes = [p, p, p, p, i, p, i, p]
+        so.urt_sky_tap.argtypes = [p] * 10 + [i, p, i, i] + [u32] * 4 + [
+            p, i, i, i, p]
         so.urt_uniform.argtypes = [u32, u32, p, ctypes.c_longlong, p]
         so.urt_bounce_rows.argtypes = [p, p, p]
-        for fn in (so.urt_trace_hits, so.urt_path_trace, so.urt_env_lookup,
-                   so.urt_env_lookup_planes, so.urt_uniform,
-                   so.urt_bounce_rows):
+        for fn in (so.urt_trace_hits, so.urt_path_trace, so.urt_sky_tap,
+                   so.urt_uniform, so.urt_bounce_rows):
             fn.restype = ctypes.c_int
         _LIB = so
     return _LIB

@@ -1,84 +1,161 @@
-// Sky-tap kernel: one packed RGBE texel per ray, decoded.
+// Sky tap: for each ray, its two sky draws, the stochastic texel pick, the
+// RGBE fetch and decode, and the compose into the radiance, in one launch.
 //
-// Replaces the JAX package's ops/pallas_env.py:_env_kernel8 (launched by
-// _env_lookup8 through sample_skybox_rgbe_mxu). The TPU kernel turns the
-// per-ray gather into one-hot matrix products because a TPU gathers serially;
-// a GPU gathers natively, so this is the gather itself: word = plane[yn*W+xn],
-// then byte * scale[e] with the 256-entry decode table of ops/shade.py
-// (2^(e-136) as the JAX package evaluates it; 0 for e == 0), bit-identical to
-// the plain version. The texel pick (equirect angles, stochastic corner) stays
-// in torch outside the kernel, as it stays in XLA in the JAX package.
+// Replaces the JAX package's two env kernels, ops/pallas_env.py:_env_kernel8
+// (the packed words, impls "int8x8" and "bf16x8") and :_env_kernel (the
+// (H, 4W) byte-plane table, impl "bf16"), both launched through
+// sample_skybox_rgbe_mxu by render.py:_env_tap, together with what XLA runs
+// around them: the two sky uniforms of render_sample_mega (render.py:507-509),
+// the texel pick (_equirect_coords and the corner choice,
+// pallas_env.py:235-237) and the compose radiance + sky_e * sky
+// (render.py:531-532). The TPU kernels turn the per-ray gather into one-hot
+// matrix products because a TPU gathers serially; a GPU gathers natively, so
+// the fetch is a plain load, and everything around it moves into the same
+// thread instead of some forty elementwise passes over (N,) rows in HBM.
 //
-// Bound on this card: memory. 12 bytes of ray indices and output per ray,
-// a 4-byte gather from a plane that stays in L2 (512 KB for the 256x512 bench
-// sky). Nothing to do about it in this first version.
+// One thread per ray:
+// * counter c: i; or ray_index[i] (the split's compact buffer holds rays of
+//   the full-width frame, and each keeps its own draws); or, for a bounce
+//   loop whose rays run in pixel order at a size that tiles into 8x16 blocks
+//   (render._draw_fn's to_pixel_order), ray i's block slot, computed here
+//   from the lattice (h, W, spp) rather than passed as an index row;
+// * u1, u2 = threefry uniforms of the keys fold_in(fold_in(k_bounce,
+//   bounces), 0 | 1) at counter c, the keys passed by value;
+// * the pick of ops/shade.py:_equirect_coords and pick_texel, op for op:
+//   the divisions are IEEE divisions, as the plain version's divisions by a
+//   float32 tensor are (-fmad=false keeps every product and sum rounded on
+//   its own), negations stay negations so signed zeros reach atan2f as they
+//   do in torch, and the integer remainder takes the divisor's sign;
+// * the fetch and the decode byte * scale[e] through the 256-entry table of
+//   ops/shade.py (2^(e-136) as the JAX package evaluates it; 0 for e == 0),
+//   so both fetch modes give the same bits;
+// * rad[k] = rad[k] + sky_e[k] * tap[k], in place: sky_e and sky_d are
+//   read, only the radiance rows are written.
+//
+// Bound on this card: memory. 48 bytes a ray (radiance, sky throughput and
+// sky direction read, radiance written) against two threefry draws, ~160
+// int32 operations; the sky map (512 KB packed for the 256x512 bench sky)
+// stays in L2. Nothing is written but the radiance.
 
 #include <cuda_runtime.h>
 
-__global__ void urt_env_kernel(const int* __restrict__ plane,
-                               const float* __restrict__ scale,
-                               const int* __restrict__ yn,
-                               const int* __restrict__ xn, int w,
-                               float* __restrict__ out, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const unsigned int word = (unsigned int)plane[(size_t)yn[i] * w + xn[i]];
-  const float sc = scale[word >> 24];
-  out[i] = (float)((word >> 16) & 0xFFu) * sc;
-  out[(size_t)n + i] = (float)((word >> 8) & 0xFFu) * sc;
-  out[2 * (size_t)n + i] = (float)(word & 0xFFu) * sc;
-}
+#include "threefry.cuh"
 
-extern "C" int urt_env_lookup(const int* plane, const float* scale,
-                              const int* yn, const int* xn, int w, float* out,
-                              int n, cudaStream_t stream) {
-  if (n > 0) {
-    const int threads = 256;
-    urt_env_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-        plane, scale, yn, xn, w, out, n);
+// float32(3.14159265) and float32(2.0 * 3.14159265): ops/sampling.py:PI as
+// the plain version's 0-dim float32 divisors hold it.
+#define URT_SKY_PI 0x1.921fb6p+1f
+#define URT_SKY_TWO_PI 0x1.921fb6p+2f
+
+struct SkyRows {
+  float* rad[3];
+  const float* e[3];
+  const float* d[3];
+};
+
+// The packed (H*W,) int32 words: e << 24 | r << 16 | g << 8 | b.
+struct PackedFetch {
+  static __device__ __forceinline__ void fetch(const void* table,
+                                               const float* scale, int w,
+                                               int yn, int xn, float& r,
+                                               float& g, float& b) {
+    const unsigned int word =
+        ((const unsigned int*)table)[(size_t)yn * w + xn];
+    const float sc = scale[word >> 24];
+    r = (float)((word >> 16) & 0xFFu) * sc;
+    g = (float)((word >> 8) & 0xFFu) * sc;
+    b = (float)(word & 0xFFu) * sc;
   }
-  return (int)cudaGetLastError();
-}
+};
 
-// Byte-plane sky tap: the same fetch and decode from the (H, 4W) byte-plane
-// table, one plane each for r, g, b and e (ops/cuda_env.py:byte_planes).
-//
-// Replaces the JAX package's ops/pallas_env.py:_env_kernel (launched by
-// _env_lookup through sample_skybox_rgbe_mxu with impl="bf16"). The TPU
-// kernel contracts a one-hot row matrix with the bf16 table on the MXU and
-// picks the column with a one-hot mask; both are exact, so each ray gets the
-// four bytes at (yn, p*W + xn). Here one thread per ray reads those four
-// bytes and decodes them through the same 256-entry scale table as the
-// packed-word kernel above; the (steps, 8, B) padded output of the TPU
-// kernel is its own layout and is not carried over: the output is (3, n).
-//
-// Bound on this card: memory. Four byte reads per ray from a table that
-// stays in L2 (512 KB for the 256x512 bench sky), 8 bytes of texel indices
-// in and 12 bytes of output per ray. This first version does nothing more.
-// CUDA C++ rather than Triton: it is a gather, and it builds into the same
-// library as the other kernels.
-__global__ void urt_env_planes_kernel(const unsigned char* __restrict__ tab,
-                                      const float* __restrict__ scale,
-                                      const int* __restrict__ yn,
-                                      const int* __restrict__ xn, int w,
-                                      float* __restrict__ out, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+// The (H, 4W) uint8 byte planes r, g, b, e side by side
+// (ops/cuda_env.py:byte_planes).
+struct PlanesFetch {
+  static __device__ __forceinline__ void fetch(const void* table,
+                                               const float* scale, int w,
+                                               int yn, int xn, float& r,
+                                               float& g, float& b) {
+    const unsigned char* t =
+        (const unsigned char*)table + (size_t)yn * 4 * w + xn;
+    const float sc = scale[t[3 * (size_t)w]];
+    r = (float)t[0] * sc;
+    g = (float)t[w] * sc;
+    b = (float)t[2 * (size_t)w] * sc;
+  }
+};
+
+template <class Fetch>
+__global__ void urt_sky_tap_kernel(SkyRows rows,
+                                   const void* __restrict__ table,
+                                   const float* __restrict__ scale, int H,
+                                   int W, uint32_t k0, uint32_t k1,
+                                   uint32_t k2, uint32_t k3,
+                                   const long long* __restrict__ ray_index,
+                                   int lat_h, int lat_w, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const unsigned char* t = tab + (size_t)yn[i] * 4 * w + xn[i];
-  const float sc = scale[t[3 * (size_t)w]];
-  out[i] = (float)t[0] * sc;
-  out[(size_t)n + i] = (float)t[w] * sc;
-  out[2 * (size_t)n + i] = (float)t[2 * (size_t)w] * sc;
+  uint64_t c = (uint64_t)i;
+  if (ray_index != nullptr) {
+    c = (uint64_t)ray_index[i];
+  } else if (lat_w > 0) {
+    // Pixel (s, row, px) of a pixel-order ray draws at its 8x16 block slot.
+    const long long hw = (long long)lat_h * lat_w;
+    const long long s = i / hw;
+    const int rem = (int)(i - s * hw);
+    const int row = rem / lat_w, px = rem - row * lat_w;
+    c = (uint64_t)(s * hw + (long long)(row >> 3) * 8 * lat_w +
+                   (px >> 4) * 128 + (row & 7) * 16 + (px & 15));
+  }
+  const float u1 = urt_uniform_at(k0, k1, c);
+  const float u2 = urt_uniform_at(k2, k3, c);
+
+  // torch.clamp passes NaN through; so does this.
+  float y = rows.d[1][i];
+  y = y < -1.0f ? -1.0f : (y > 1.0f ? 1.0f : y);
+  const float row01 = __fdiv_rn(acosf(y), URT_SKY_PI);
+  const float nz = -rows.d[2][i];
+  const float col = fmodf(__fdiv_rn(-atan2f(rows.d[0][i], nz), URT_SKY_TWO_PI),
+                          1.0f);
+  const float col01 = col < 0.0f ? col + 1.0f : col;
+  const float fy = row01 * (float)H - 0.5f;
+  const float fx = col01 * (float)W - 0.5f;
+  const float y0f = floorf(fy), x0f = floorf(fx);
+  const int yi = (int)y0f, xi = (int)x0f;
+  const int y0 = min(max(yi, 0), H - 1);
+  const int y1 = min(max(yi + 1, 0), H - 1);
+  const int x0 = (xi % W + W) % W;
+  const int x1 = ((xi + 1) % W + W) % W;
+  const int yn = u1 < fy - y0f ? y1 : y0;
+  const int xn = u2 < fx - x0f ? x1 : x0;
+
+  float tap[3];
+  Fetch::fetch(table, scale, W, yn, xn, tap[0], tap[1], tap[2]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    rows.rad[k][i] = rows.rad[k][i] + rows.e[k][i] * tap[k];
 }
 
-extern "C" int urt_env_lookup_planes(const unsigned char* tab,
-                                     const float* scale, const int* yn,
-                                     const int* xn, int w, float* out, int n,
-                                     cudaStream_t stream) {
+// planes != 0: table is the byte-plane table, else the packed words.
+// ray_index may be null; lat_w > 0 selects the block-slot counter.
+extern "C" int urt_sky_tap(float* rad0, float* rad1, float* rad2,
+                           const float* e0, const float* e1, const float* e2,
+                           const float* d0, const float* d1, const float* d2,
+                           const void* table, int planes, const float* scale,
+                           int H, int W, unsigned int k0, unsigned int k1,
+                           unsigned int k2, unsigned int k3,
+                           const long long* ray_index, int lat_h, int lat_w,
+                           int n, cudaStream_t stream) {
   if (n > 0) {
+    const SkyRows rows = {{rad0, rad1, rad2}, {e0, e1, e2}, {d0, d1, d2}};
     const int threads = 256;
-    urt_env_planes_kernel<<<(n + threads - 1) / threads, threads, 0,
-                            stream>>>(tab, scale, yn, xn, w, out, n);
+    const int blocks = (n + threads - 1) / threads;
+    if (planes)
+      urt_sky_tap_kernel<PlanesFetch><<<blocks, threads, 0, stream>>>(
+          rows, table, scale, H, W, k0, k1, k2, k3, ray_index, lat_h, lat_w,
+          n);
+    else
+      urt_sky_tap_kernel<PackedFetch><<<blocks, threads, 0, stream>>>(
+          rows, table, scale, H, W, k0, k1, k2, k3, ray_index, lat_h, lat_w,
+          n);
   }
   return (int)cudaGetLastError();
 }

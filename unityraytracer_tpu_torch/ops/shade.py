@@ -51,21 +51,7 @@ def sample_skybox(skybox, rd: Vec3) -> Vec3:
     """Bilinear equirect environment lookup: row01 = acos(y)/pi,
     col01 = (-atan2(x, -z)/(2*pi)) mod 1; clamp v, wrap u."""
     H, W = skybox.shape[0], skybox.shape[1]
-    y = torch.clamp(rd[1], -1.0, 1.0)
-    row01 = torch.arccos(y) / PI
-    col01 = _fmod1(-torch.atan2(rd[0], -rd[2]) / (2.0 * PI))
-
-    fy = row01 * H - 0.5
-    fx = col01 * W - 0.5
-    y0f = torch.floor(fy)
-    x0f = torch.floor(fx)
-    wy = fy - y0f
-    wx = fx - x0f
-    y0 = torch.clamp(y0f.to(torch.int32), 0, H - 1)
-    y1 = torch.clamp(y0f.to(torch.int32) + 1, 0, H - 1)
-    x0 = torch.remainder(x0f.to(torch.int32), W)
-    x1 = torch.remainder(x0f.to(torch.int32) + 1, W)
-
+    y0, y1, x0, x1, wy, wx = _equirect_coords((H, W), rd)
     i00 = (y0 * W + x0).long()
     i01 = (y0 * W + x1).long()
     i10 = (y1 * W + x0).long()
@@ -129,11 +115,23 @@ def _decode_rgbe(word) -> Vec3:
             (word & 0xFF).to(torch.float32) * scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _divisors(device: torch.device):
+    """0-dim float32 pi and 2 pi on ``device``, made once per device. A
+    division by a Python scalar is a multiply by its reciprocal in torch's
+    CUDA kernels and a true division on the CPU and in XLA; a division by a
+    tensor on the same device is a true division on both, so the CUDA sky
+    tap (an IEEE division) can match its plain version bit for bit."""
+    return (torch.tensor(PI, dtype=torch.float32, device=device),
+            torch.tensor(2.0 * PI, dtype=torch.float32, device=device))
+
+
 def _equirect_coords(skybox_hw, rd: Vec3):
     H, W = skybox_hw
+    pi, two_pi = _divisors(rd[1].device)
     y = torch.clamp(rd[1], -1.0, 1.0)
-    row01 = torch.arccos(y) / PI
-    col01 = _fmod1(-torch.atan2(rd[0], -rd[2]) / (2.0 * PI))
+    row01 = torch.arccos(y) / pi
+    col01 = _fmod1(-torch.atan2(rd[0], -rd[2]) / two_pi)
     fy = row01 * H - 0.5
     fx = col01 * W - 0.5
     y0f = torch.floor(fy)

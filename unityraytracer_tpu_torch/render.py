@@ -9,7 +9,8 @@ The port of the JAX package's ``render.py``:
   bounce in one launch, fed the same uniform rows, which ``bounce_rows``
   draws in one launch of the threefry kernel; with ``split_bounce``,
   the deep bounces on a compact buffer of the surviving rays
-  (``_path_trace_split``).
+  (``_path_trace_split``); then the sky tap, whose kernel draws, picks,
+  fetches and composes into the radiance in one launch (``_env_tap``).
 * ``render_frame``: the best path for a config, in ``spp_chunk`` sub-frames
   when the config asks for them.
 * ``progressive_step``: the 1/(N+1) running mean.
@@ -39,7 +40,7 @@ from .config import RenderConfig
 from .ops import vec as vec_ops
 from .ops import trace as trace_ops
 from .ops.bvh import ClusterAccel, build_accel
-from .ops.cuda_env import sample_skybox_tap
+from .ops.cuda_env import sky_tap
 from .ops.cuda_path import path_trace
 from .ops.cuda_trace import KernelScene, make_pallas_tracer
 from .ops.sampling import sample_unit_disk
@@ -121,12 +122,18 @@ def _ray_lattice(h: int, W: int, spp: int, blocked: bool, device):
     return px, row
 
 
+def _pixel_order(h: int, W: int, blocked: bool) -> bool:
+    """Whether rays run in pixel order at a size that tiles into 8x16
+    blocks, where ``_draw_fn`` moves each draw to its block slot."""
+    return not blocked and h % 8 == 0 and W % 16 == 0
+
+
 def _draw_fn(h: int, W: int, spp: int, blocked: bool):
     """Canonical per-ray uniform assignment shared by every tracer path: at
     sizes that tile into 8x16 blocks, pixel p's draw is the flat element at
     p's block slot. Returns ``f(flat_draw) -> draw in ray-layout order``."""
     N = spp * h * W
-    if blocked or not (h % 8 == 0 and W % 16 == 0):
+    if not _pixel_order(h, W, blocked):
         return lambda a: a
 
     def to_pixel_order(a):
@@ -169,25 +176,41 @@ def _camera_rays(camera, key, cfg, h, W, spp, row0, blocked, draw, device):
     return ro, rd, k_bounce
 
 
-def _sky_uniforms(cfg, k_bounce, uniform):
-    if not cfg.sky_rgbe:
-        return None, None
+def _sky_keys(cfg, k_bounce):
+    """The keys of the sky tap's two draws."""
     ks = rng.fold_in(k_bounce, cfg.bounces)
-    return uniform(rng.fold_in(ks, 0)), uniform(rng.fold_in(ks, 1))
+    return rng.fold_in(ks, 0), rng.fold_in(ks, 1)
 
 
-def _env_tap(scene: Scene, cfg: RenderConfig, sky_d, su1, su2):
+def _env_tap(scene: Scene, cfg: RenderConfig, radiance, sky_e, sky_d,
+             k_bounce, ray_index=None, lattice=None, n_rays=None):
     """Once-per-frame environment resolve for the recorded miss directions:
-    one stochastic RGBE tap per ray, through the env kernel when
-    ``cfg.sky_mxu`` (bit-identical to the plain gather); the bilinear float
-    sky without ``sky_rgbe``."""
-    if su1 is None:
-        return sample_skybox(scene.skybox, sky_d)
+    ``radiance + sky_e * sky``. With ``cfg.sky_rgbe`` the sky is one
+    stochastic RGBE tap per ray, whose two draws sit at the ray's counter
+    in the frame's sky rows (``cuda_env.sky_counters``: the ray's index,
+    ``ray_index[i]`` into the frame's ``n_rays`` rays, or its block slot in
+    ``lattice``); with ``cfg.sky_mxu`` and a packed plane, the sky-tap
+    kernel draws, picks, fetches and composes into ``radiance`` in place
+    (bit-identical to the plain gather). Without ``sky_rgbe``, the bilinear
+    float sky."""
+    if not cfg.sky_rgbe:
+        return vec_ops.add(radiance,
+                           vec_ops.mul(sky_e, sample_skybox(scene.skybox,
+                                                            sky_d)))
     H, W = scene.skybox.shape[0], scene.skybox.shape[1]
+    keys = _sky_keys(cfg, k_bounce)
     if cfg.sky_mxu and scene.skybox_rgbe is not None:
-        return sample_skybox_tap((H, W), scene.skybox_rgbe, sky_d, su1, su2)
-    return sample_skybox_rgbe(scene.skybox, sky_d, u1=su1, u2=su2,
-                              packed=scene.skybox_rgbe)
+        return sky_tap((H, W), scene.skybox_rgbe, radiance, sky_e, sky_d,
+                       keys, ray_index=ray_index, lattice=lattice)
+    device = sky_d[0].device
+    n = sky_d[0].shape[0] if n_rays is None else n_rays
+    draw = _draw_fn(*lattice, False) if lattice else (lambda a: a)
+    su1, su2 = (draw(_uniform(k, n, device)) for k in keys)
+    if ray_index is not None:
+        su1, su2 = su1[ray_index], su2[ray_index]
+    sky = sample_skybox_rgbe(scene.skybox, sky_d, u1=su1, u2=su2,
+                             packed=scene.skybox_rgbe)
+    return vec_ops.add(radiance, vec_ops.mul(sky_e, sky))
 
 
 def render_sample(scene: Scene, tracer: Callable, camera: Camera, key,
@@ -253,9 +276,9 @@ def render_sample(scene: Scene, tracer: Callable, camera: Camera, key,
             ro = vec_ops.where(alive, ro, vec_ops.splat((1e7, 1e7, 1e7), ro[0]))
             rd = vec_ops.where(alive, rd, vec_ops.splat((0.0, 1.0, 0.0), rd[0]))
 
-    su1, su2 = _sky_uniforms(cfg, k_bounce, uniform)
-    sky = _env_tap(scene, cfg, sky_d, su1, su2)
-    radiance = vec_ops.add(radiance, vec_ops.mul(sky_e, sky))
+    lattice = (h, W, spp) if _pixel_order(h, W, blocked) else None
+    radiance = _env_tap(scene, cfg, radiance, sky_e, sky_d, k_bounce,
+                        lattice=lattice)
     img = torch.stack([from_blocks(c).mean(dim=0) for c in radiance], dim=-1)
     if with_alive_count:
         return img, alive_total
@@ -343,15 +366,13 @@ def bounce_rows(k_bounce, cfg: RenderConfig, h: int, row0: int,
     return uni
 
 
-def mega_inputs(scene: Scene, camera: Camera, key, cfg: RenderConfig,
-                row0: int = 0, rows: Optional[int] = None):
+def _frame_inputs(scene: Scene, camera: Camera, key, cfg: RenderConfig,
+                  row0: int = 0, rows: Optional[int] = None):
     """What the path kernel consumes for one frame: camera rays in 8x16
-    block order, the (bounces, 5, N) uniform rows (``bounce_rows``) and the
-    sky-tap uniforms — the same numbers the JAX package's
-    ``render_sample_mega`` computes."""
+    block order and the (bounces, 5, N) uniform rows (``bounce_rows``),
+    with the frame's bounce key and the block-to-image permute."""
     H, W, spp = cfg.height, cfg.width, cfg.spp
     h = H if rows is None else rows
-    N = h * W * spp
     device = _scene_device(scene)
     blocked = MEGA_BLOCKED and h % 8 == 0 and W % 16 == 0
     draw = _draw_fn(h, W, spp, blocked)
@@ -359,8 +380,21 @@ def mega_inputs(scene: Scene, camera: Camera, key, cfg: RenderConfig,
                                     blocked, draw, device)
     _, from_blocks = _block_permutes(h, W, spp, blocked)
     uni = bounce_rows(k_bounce, cfg, h, row0, blocked, device)
-    su1, su2 = _sky_uniforms(cfg, k_bounce,
-                             lambda k: draw(_uniform(k, N, device)))
+    return ro, rd, uni, k_bounce, from_blocks
+
+
+def mega_inputs(scene: Scene, camera: Camera, key, cfg: RenderConfig,
+                row0: int = 0, rows: Optional[int] = None):
+    """``_frame_inputs`` with the sky tap's two uniform rows drawn as
+    tensors (the frame itself draws them inside the sky-tap kernel) — the
+    same numbers the JAX package's ``render_sample_mega`` computes."""
+    ro, rd, uni, k_bounce, from_blocks = _frame_inputs(scene, camera, key,
+                                                       cfg, row0, rows)
+    su1 = su2 = None
+    if cfg.sky_rgbe:
+        n = ro[0].shape[0]
+        su1, su2 = (_uniform(k, n, ro[0].device)
+                    for k in _sky_keys(cfg, k_bounce))
     return ro, rd, uni, su1, su2, from_blocks
 
 
@@ -373,7 +407,7 @@ def split_capacity(n_rays: int, split_frac: float) -> int:
     return min(C, -(-n_rays // B) * B)
 
 
-def _path_trace_split(scene: Scene, ks: KernelScene, ro, rd, uni, su1, su2,
+def _path_trace_split(scene: Scene, ks: KernelScene, ro, rd, uni, k_bounce,
                       cfg: RenderConfig, sb: int):
     """Bounce-split path kernel (the JAX package's ``_path_trace_split``):
     full width for bounces [0, sb), then the deep bounces on a compact
@@ -381,12 +415,12 @@ def _path_trace_split(scene: Scene, ks: KernelScene, ro, rd, uni, su1, su2,
 
     The alive rays get cumsum destinations; one gather moves their packed
     (16, N) resume state into the buffer, one more their remaining uniform
-    rows and sky uniforms, taken by original ray index so that each ray's
-    stream is the unsplit kernel's. The compact radiance, with its sky tap
-    taken in the compact domain, is scatter-added back. The returned sky
-    records hold only misses of bounces [0, sb): a ray that reached the
-    deep bounces has no record there, so the caller's full-width sky tap
-    stays right.
+    rows, taken by original ray index so that each ray's stream is the
+    unsplit kernel's. The compact radiance gets its sky tap in the compact
+    domain, each slot drawing at its original ray's counter, and is
+    scatter-added back. The returned sky records hold only misses of
+    bounces [0, sb): a ray that reached the deep bounces has no record
+    there, so the caller's full-width sky tap stays right.
 
     The buffer holds ``split_capacity(N, split_frac)`` rays. Survivors past
     it (overflow) finish at full width in a remainder pass on their
@@ -417,18 +451,13 @@ def _path_trace_split(scene: Scene, ks: KernelScene, ro, rd, uni, su1, su2,
     alive_c = torch.where(slot_live, stc[9], 0.0)
 
     nb2 = cfg.bounces - sb
-    packed = [uni[sb:].reshape(nb2 * 5, N)]
-    if su1 is not None:
-        packed += [su1[None, :], su2[None, :]]
-    g = torch.cat(packed, 0).index_select(1, idx)
-    uni_c = g[:nb2 * 5].reshape(nb2, 5, C)
+    uni_c = uni[sb:].reshape(nb2 * 5, N).index_select(1, idx) \
+        .reshape(nb2, 5, C)
 
     rad2, se2, sd2 = path_trace(ks, ro_c, rd_c, uni_c, cfg, b0=sb, nb=nb2,
                                 energy0=en_c, alive0=alive_c)
-    sky_c = _env_tap(scene, cfg, sd2,
-                     g[nb2 * 5] if su1 is not None else None,
-                     g[nb2 * 5 + 1] if su1 is not None else None)
-    rad_c = vec_ops.add(rad2, vec_ops.mul(se2, sky_c))
+    rad_c = _env_tap(scene, cfg, rad2, se2, sd2, k_bounce, ray_index=idx,
+                     n_rays=N)
     # In place into the first segment's radiance rows. Pad slots alias ray
     # 0 and add exact zeros (slot_live masks them), so the atomics of the
     # CUDA index_add give the same sums in any order.
@@ -443,8 +472,8 @@ def _path_trace_split(scene: Scene, ks: KernelScene, ro, rd, uni, su1, su2,
     rad3, se3, sd3 = path_trace(ks, tuple(st[0:3]), tuple(st[3:6]), uni[sb:],
                                 cfg, b0=sb, nb=nb2, energy0=tuple(st[6:9]),
                                 alive0=overflow)
-    sky3 = _env_tap(scene, cfg, sd3, su1, su2)
-    radiance = vec_ops.add(radiance, vec_ops.add(rad3, vec_ops.mul(se3, sky3)))
+    rad3 = _env_tap(scene, cfg, rad3, se3, sd3, k_bounce)
+    radiance = vec_ops.add(radiance, rad3)
     return radiance, se1, sd1
 
 
@@ -453,20 +482,20 @@ def render_sample_mega(scene: Scene, accel, camera: Camera, key,
                        rows: Optional[int] = None):
     """``render_sample`` through the path kernel (``ops/cuda_path.py``):
     the same uniform streams, every bounce in one launch (or two segments
-    with ``cfg.split_bounce``). ``accel``: a ``KernelScene`` or the scene's
+    with ``cfg.split_bounce``), then the sky tap composed into the radiance
+    in one launch. ``accel``: a ``KernelScene`` or the scene's
     ``ClusterAccel``."""
     ks = accel if isinstance(accel, KernelScene) else \
         KernelScene.create(scene, accel)
-    ro, rd, uni, su1, su2, from_blocks = mega_inputs(scene, camera, key, cfg,
-                                                     row0, rows)
+    ro, rd, uni, k_bounce, from_blocks = _frame_inputs(scene, camera, key,
+                                                       cfg, row0, rows)
     sb = cfg.split_bounce
     if sb is not None and 0 < sb < cfg.bounces:
         radiance, sky_e, sky_d = _path_trace_split(scene, ks, ro, rd, uni,
-                                                   su1, su2, cfg, sb)
+                                                   k_bounce, cfg, sb)
     else:
         radiance, sky_e, sky_d = path_trace(ks, ro, rd, uni, cfg)
-    sky = _env_tap(scene, cfg, sky_d, su1, su2)
-    radiance = vec_ops.add(radiance, vec_ops.mul(sky_e, sky))
+    radiance = _env_tap(scene, cfg, radiance, sky_e, sky_d, k_bounce)
     return torch.stack([from_blocks(c).mean(dim=0) for c in radiance], dim=-1)
 
 

@@ -102,21 +102,33 @@ def random_bits(key_: np.ndarray, shape: Sequence[int],
                 device=None) -> torch.Tensor:
     """32-bit words ``bits1 ^ bits2`` of threefry on the (hi, lo) counter
     pair of each flat index, as int64 values in [0, 2**32)."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    return _bits_at(key_, idx).reshape(tuple(shape))
+
+
+def _bits_at(key_: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
     k1, k2 = _words(key_)
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
-    return (b1 ^ b2).reshape(tuple(shape))
+    b1, b2 = threefry2x32(k1, k2, counters >> 32, counters & MASK)
+    return b1 ^ b2
+
+
+def _to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """The top 23 bits as the mantissa of a float in [1, 2), minus 1."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
 
 
 def uniform_plain(key_: np.ndarray, shape: Sequence[int],
                   device=None) -> torch.Tensor:
     """Plain version of ``uniform``: the int64 torch hash of
-    ``random_bits``, the top 23 bits as the mantissa of a float in [1, 2),
-    minus 1."""
-    bits = random_bits(key_, shape, device)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    ``random_bits``, mapped to [0, 1)."""
+    return _to_unit(random_bits(key_, shape, device))
+
+
+def uniform_at_plain(key_: np.ndarray, counters: torch.Tensor) -> torch.Tensor:
+    """The floats ``uniform_plain(key, shape)`` puts at the flat indices
+    ``counters`` (an int64 tensor), without drawing the others."""
+    return _to_unit(_bits_at(key_, counters.to(torch.int64)))
 
 
 def uniform(key_: np.ndarray, shape: Sequence[int],
