@@ -56,6 +56,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    past the compact buffer) within 1e-5 of unsplit, and a chunked frame at
    192x96 (spp 5, ``spp_chunk=2``) against its spp-weighted sub-frames.
 
+7. the preview path on the main path's cell (``Renderer(bench_scene(100_000),
+   1920x1080, spp 1, 8 bounces, device="cuda")``), each sub-phase counted
+   on its own:
+   a. ``aovs()``: exactly one closest-hit launch on 2,073,600 pixel-centre
+      rays, its buffers held against ``closest_hit_plain`` on a strided
+      subset (hit masks and winners agree on >= 99.99% of rays, t to 1e-5
+      relative, albedo and emission equal and normals to 1e-6 where both
+      hit one primitive), and its time;
+   b. the a-trous kernel (``urt_atrous``) against ``atrous_denoise_plain``
+      on the renderer's accumulator after 4 frames, unguided and guided by
+      the AOVs of (a), 3 and 5 levels: within ATROUS_ULP ulp, one launch a
+      level; its time per level, the plain version's, and its bound, with
+      expf counted by its SASS instructions;
+   c. ``watch(every=4, frames=12, denoise=True, guided=True, http_port=)``:
+      both URLs answered, the median tick split into step, denoise and PNG;
+   d. ``save_aovs`` at 1080p, read back part by part with the port's
+      ``load_exr``, equal to the half-rounded buffers, and its seconds;
+   e. ``profile(3)``: its report, with the path, env and rng stages
+      non-zero.
+
 Phase 3 also holds the path kernel's 16 resume-state rows against the plain
 version's (bit for bit, at 192x96 x 4 and on the 1080p x 8 subset with two
 bounces).
@@ -66,21 +86,32 @@ the run of the path that uses it (the main path for the path, sky-tap
 from the megakernel=False frame stands under
 ``launches_megakernel_false``; the bf16 frame for the sky tap's byte-plane
 fetch, "env_planes"), the counts of every path under ``launches_by_path``,
-its error against the plain version, both times (``shape`` and
+its error against the plain version (the a-trous kernel also in ulp),
+both times (``shape`` and
 ``plain_shape`` say at what size), ``bound_ms``, the least time the card
 could take for the kernel's work at ``shape`` (the larger of its bytes over
 3.35 TB/s and its operations over the peak rate of their type,
 ``bound_by`` naming which), and ``library_ms``, null: no single PyTorch
-call computes any of these functions. The last line is ``{"ok": true,
+call computes any of these functions (none computes an edge-stopping
+bilateral a-trous pass). A threefry draw and an expf are priced by their
+SASS instructions: a kernel of one draw (or one expf) against a kernel of
+one copy, built with the kernels' flags and read with cuobjdump (phase 2);
+a draw's integer-ALU instructions at the ALU's rate, or all of them at the
+SM's issue rate, whichever is slower. The closest-hit and a-trous kernels' ``launches``
+are those of the preview run (7c). The last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits non-zero and prints no
 result.
 """
 
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -111,19 +142,29 @@ LAUNCHES_BEFORE = 161.3
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): memory, and
 # float32 outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz). The
-# int32 rate is half the float32 lanes without the multiply-add's factor 2:
-# 132 SMs x 64 lanes x 1.98 GHz.
+# int32 rate is the integer ALU's 64 lanes an SM a clock: 132 SMs x 64 lanes
+# x 1.98 GHz; an SM issues 128 instructions of any kind a clock, twice that.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_I32 = 132 * 64 * 1.98e9
-# Operations counted per unit of work: one threefry draw (20 rounds of add,
-# rotate, xor, the key schedule, and the bits-to-float step), one slab test
-# of closest_hit.cuh (6 subtractions, 6 products, 12 min/max, the widening
-# product) and one MT97 test on precomputed edges (27 products and sums of
-# the cross and dot products, the division, 6 comparisons).
-OPS_DRAW = 80
+# SASS opcodes that run on the integer ALU pipe alone (IMAD runs on the
+# multiply-add pipe, uniform opcodes on the uniform pipe).
+ALU_OPCODES = {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT",
+               "IMNMX", "IABS", "FLO", "POPC", "BREV"}
+# Operations counted per unit of work: one slab test of closest_hit.cuh (6
+# subtractions, 6 products, 12 min/max, the widening product) and one MT97
+# test on precomputed edges (27 products and sums of the cross and dot
+# products, the division, 6 comparisons). A threefry draw and an expf are
+# counted by their SASS instructions (``sass_counts``).
 FLOP_BOX = 25
 FLOP_TRI = 49
+# Float operations of one a-trous tap besides its expf: the color distance
+# (3 subtractions, 3 products, 2 sums), its negation and weight (2), the
+# tap weight and w (2), the three products and sums of acc and the sum of
+# wsum (7): 8 + 2 + 2 + 7; each guide adds its distance (8), weight and
+# subtraction (10).
+FLOP_TAP = 19
+FLOP_TAP_GUIDE = 10
 
 
 def bound(nbytes, ops=0.0, rate=PEAK_F32):
@@ -166,6 +207,76 @@ def scene_bytes(ks) -> int:
     return sum(p.numel() * p.element_size() for p in parts)
 
 
+def sass_counts(pairs, flags) -> dict:
+    """SASS instructions that ``body`` adds to ``base``, by opcode, for each
+    ``name: (body, base)`` of ``pairs``: two kernels that write
+    ``y[i] = body`` and ``y[i] = base`` for one thread's index ``i`` (keys
+    ``k0``, ``k1`` by value, csrc/threefry.cuh included), all built at once
+    with ``flags`` and read back with cuobjdump (NOPs not counted). The
+    kernels are straight-line code, so a static count is what each thread
+    runs."""
+    from unityraytracer_tpu_torch import _build
+
+    nvcc = _build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    tmp = tempfile.mkdtemp(prefix="urt_sass_")
+    try:
+        procs = {}
+        for name, bodies in pairs.items():
+            for side, body in zip(("body", "base"), bodies):
+                src = os.path.join(tmp, f"{name}_{side}.cu")
+                with open(src, "w") as f:
+                    f.write('#include "threefry.cuh"\n'
+                            "__global__ void k(const float* x, float* y, "
+                            "unsigned k0, unsigned k1) {\n"
+                            "  const unsigned i = blockIdx.x * blockDim.x "
+                            "+ threadIdx.x;\n"
+                            f"  y[i] = {body};\n}}\n")
+                procs[src] = subprocess.Popen(
+                    [nvcc, *[f for f in flags if f not in ("-Xcompiler",
+                                                           "-fPIC")],
+                     f"-I{_build.CSRC}", "-cubin", "-o", src[:-3] + ".cubin",
+                     src], stderr=subprocess.PIPE, text=True)
+        for p in procs.values():
+            if p.wait(timeout=300) != 0:
+                raise RuntimeError(f"nvcc failed: {p.stderr.read()}")
+
+        def opcodes(src):
+            res = subprocess.run([cuobjdump, "-sass", src[:-3] + ".cubin"],
+                                 capture_output=True, text=True, timeout=60,
+                                 check=True)
+            out = {}
+            for ln in res.stdout.splitlines():
+                if not (ln.strip().startswith("/*") and ";" in ln):
+                    continue
+                words = [w for w in ln.split("*/", 1)[1].split(";")[0].split()
+                         if not w.startswith("@")]
+                op = words[0].split(".")[0] if words else "NOP"
+                if op != "NOP":
+                    out[op] = out.get(op, 0) + 1
+            return out
+
+        result = {}
+        for name in pairs:
+            body = opcodes(os.path.join(tmp, f"{name}_body.cu"))
+            base = opcodes(os.path.join(tmp, f"{name}_base.cu"))
+            diff = {op: body.get(op, 0) - base.get(op, 0)
+                    for op in sorted(set(body) | set(base))}
+            result[name] = {op: v for op, v in diff.items() if v}
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def int_ops(counts) -> int:
+    """Integer-ALU operations that bound the time of ``counts`` (SASS
+    opcodes of one unit of work) at PEAK_I32: its ALU instructions, or half
+    of all its instructions (an SM issues twice the ALU's lanes a clock),
+    whichever is more."""
+    alu = sum(v for op, v in counts.items() if op in ALU_OPCODES)
+    return max(alu, -(-sum(counts.values()) // 2))
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -204,7 +315,7 @@ def main() -> int:
                                                  render_frame, render_sample,
                                                  split_capacity)
     from unityraytracer_tpu_torch.ops.trace import make_brute_tracer
-    from unityraytracer_tpu_torch.utils.image import rmse
+    from unityraytracer_tpu_torch.utils.image import rmse, ulp_distance
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -225,6 +336,14 @@ def main() -> int:
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
+    # The instructions of one threefry draw and of one expf, as the kernels
+    # are built: they price the bounds of the threefry and a-trous kernels.
+    sass = sass_counts({"draw": ("urt_uniform_at(k0, k1, i)",
+                                 "__uint_as_float(i)"),
+                        "expf": ("expf(x[i])", "x[i]")}, _build.NVCC_FLAGS)
+    draw_ops, n_exp = int_ops(sass["draw"]), sum(sass["expf"].values())
+    log(f"SASS of one threefry draw {sass['draw']}: {draw_ops} int32 ops "
+        f"for its bound; of one expf {sass['expf']}: {n_exp} instructions")
 
     # Scene, accel and cameras shared by every phase.
     scene_np = fixtures.bench_scene(n_tris=N_TRIS)
@@ -323,7 +442,7 @@ def main() -> int:
         # Radiance, sky throughput and sky direction read, radiance
         # written, the sky map read once; two threefry draws a ray.
         kernels[name]["bound_ms"], kernels[name]["bound_by"] = bound(
-            n_env * 48 + table_bytes, n_env * 2 * OPS_DRAW, PEAK_I32)
+            n_env * 48 + table_bytes, n_env * 2 * draw_ops, PEAK_I32)
         log(f"{name}:", json.dumps(kernels[name]))
     del main_rows, rad_m, se_m, sd_m, scratch
 
@@ -348,7 +467,7 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: rng.uniform_plain(ukey, (n_env,),
                                                    device=dev), 5, 1))
     kernels["uniform"]["bound_ms"], kernels["uniform"]["bound_by"] = bound(
-        n_env * 4, n_env * OPS_DRAW, PEAK_I32)
+        n_env * 4, n_env * draw_ops, PEAK_I32)
     log("uniform:", json.dumps(kernels["uniform"]))
 
     qsub = RenderConfig(**QUALITY).replace(spp=QUALITY["spp_chunk"],
@@ -390,9 +509,13 @@ def main() -> int:
         shape=[cfg_m.bounces, 5, n_m], plain_shape=[cfg_m.bounces, 5, n_m],
         ms=cuda_ms(lambda: bounce_rows(kb, cfg_m, H_m, 0, True, dev), 20, 3),
         plain_ms=cuda_ms(lambda: bounce_rows_plain(kb, cfg_m, H_m, 0, True,
-                                                   dev), 3, 1))
+                                                   dev), 3, 1),
+        draw_ops=draw_ops)
+    # The rows written once and the draws' integer work; the log2, cos and
+    # sin are left out (cosf and sinf branch to a slow path that a static
+    # count would include), so the bound errs low.
     kernels["bounce_rows"]["bound_ms"], kernels["bounce_rows"]["bound_by"] = \
-        bound(cfg_m.bounces * 5 * n_m * 4, draws * OPS_DRAW, PEAK_I32)
+        bound(cfg_m.bounces * 5 * n_m * 4, draws * draw_ops, PEAK_I32)
     log("bounce_rows:", json.dumps(kernels["bounce_rows"]))
 
     # 3b. Closest-hit kernel vs plain.
@@ -749,6 +872,15 @@ def main() -> int:
     }
     log("quality preset, one chunk of 10.4M rays, layers (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in q_layers.items()))
+    # The uniform-row kernel at the chunk's shape, against its bound there.
+    n_q = qsub.num_rays
+    q_draws = n_q * (3 * qsub.bounces + (qsub.bounces - 3))
+    qb, qby = bound(qsub.bounces * 5 * n_q * 4, q_draws * draw_ops, PEAK_I32)
+    kernels["bounce_rows"]["quality_chunk"] = dict(
+        shape=[qsub.bounces, 5, n_q], ms=q_layers["uniform_rows"],
+        bound_ms=qb, bound_by=qby, share=qb / q_layers["uniform_rows"])
+    log("bounce_rows at the quality chunk:",
+        json.dumps(kernels["bounce_rows"]["quality_chunk"]))
     del rq, ro, rd, uni, rad, se, sd
 
     # 6b. The bounce split on the main path's cell.
@@ -901,20 +1033,188 @@ def main() -> int:
     torch.testing.assert_close(chunked, parts, rtol=1e-4, atol=5e-5)
     del ro, rd, uni, st
 
+    # 7. The preview path on the main path's cell, each sub-phase counted.
+    from unityraytracer_tpu_torch.models.exr import load_exr
+    from unityraytracer_tpu_torch.render import aov_buffers, pixel_center_rays
+    from unityraytracer_tpu_torch.utils.denoise import (ATROUS_ULP,
+                                                        atrous_denoise,
+                                                        atrous_denoise_plain)
+    H_p, W_p = cfg_m.height, cfg_m.width
+    n_p = H_p * W_p
+    rp = Renderer(scene_np, cam_main, cfg_m, accel=r.accel, seed=17,
+                  device="cuda").step(4)
+
+    # 7a. aovs(): one closest-hit launch, against the plain version.
+    g, la = counted(rp.aovs)
+    torch.cuda.synchronize()
+    _build.raise_on_overflow(dev)
+    by_path["aovs"] = la
+    if la["trace"] != 1 or sum(la.values()) != 1:
+        raise AssertionError(f"aovs(): expected one closest-hit launch, "
+                             f"got {la}")
+    ro, rd = pixel_center_rays(cam_main, H_p, W_p, dev)
+    alive = torch.ones(n_p, dtype=torch.bool, device=dev)
+    hk = trace_hits(rp.accel, ro, rd, alive)
+    gk = aov_buffers(hk, H_p, W_p)
+    if not all(torch.equal(g[k], gk[k]) for k in g):
+        raise AssertionError("aovs() differs from one trace of the "
+                             "pixel-centre rays")
+    sub = torch.arange(0, n_p, 97, device=dev)
+    pick = lambda v3: tuple(c[sub].contiguous() for c in v3)  # noqa: E731
+    hp = closest_hit_plain(rp.accel, pick(ro), pick(rd))
+    _build.raise_on_overflow(dev)
+    gp = aov_buffers(hp, 1, sub.numel())
+    flat = {k: v.reshape(n_p, -1)[sub] for k, v in gk.items()}
+    flat_p = {k: v.reshape(sub.numel(), -1) for k, v in gp.items()}
+    hit_agree = float((flat["hit"] == flat_p["hit"]).float().mean())
+    same = (hk.prim[sub] == hp.prim) & flat["hit"][:, 0]
+    prim_agree = float((hk.prim[sub] == hp.prim).float().mean())
+    attr_equal = all(torch.equal(flat[k][same], flat_p[k][same])
+                     for k in ("albedo", "emission"))
+    normal_err = float((flat["normal"][same] - flat_p["normal"][same])
+                       .abs().max())
+    t_rel = float(((flat["depth"][same] - flat_p["depth"][same]).abs()
+                   / flat_p["depth"][same]).max())
+    aov_ms = cuda_ms(rp.aovs, 10, 2)
+    aov_trace_ms = cuda_ms(lambda: trace_hits(rp.accel, ro, rd, alive), 10, 2)
+    log(f"7a aovs 1920x1080: 1 closest-hit launch {la['trace']}; vs plain on "
+        f"{sub.numel()} rays: hit masks agree {hit_agree:.6f}, winners agree "
+        f"{prim_agree:.6f}, albedo/emission equal {attr_equal}, normal max "
+        f"abs err {normal_err:.3e}, t max rel err {t_rel:.3e}; hit fraction "
+        f"{float(g['hit'].float().mean()):.4f}; aovs() {aov_ms:.3f} ms, its "
+        f"trace alone {aov_trace_ms:.3f} ms")
+    if not (hit_agree >= 0.9999 and prim_agree >= 0.9999 and attr_equal
+            and normal_err <= 1e-6 and t_rel <= 1e-5):
+        raise AssertionError("aovs() vs the plain closest hit")
+    del ro, rd, alive, hk, hp, gk, gp, flat, flat_p
+
+    # 7b. The a-trous kernel on the accumulator after 4 frames.
+    accum = rp.state.accum
+    guides = dict(albedo=g["albedo"], normal=g["normal"])
+    max_ulp, max_abs = 0, 0.0
+    for tag, kw in (("unguided", {}), ("guided", guides)):
+        for levels in (3, 5):
+            got, la = counted(lambda: atrous_denoise(accum, levels, 0.1, **kw))
+            want = atrous_denoise_plain(accum, levels, 0.1, **kw)
+            torch.cuda.synchronize()
+            ulp = ulp_distance(got, want)
+            err = float((got - want).abs().max())
+            max_ulp, max_abs = max(max_ulp, ulp), max(max_abs, err)
+            log(f"7b atrous [{tag}, {levels} levels] 1080x1920x3: max "
+                f"{ulp} ulp, max abs err {err:.3e}, launches {la['atrous']}, "
+                f"finite {bool(torch.isfinite(got).all())}")
+            if not (ulp <= ATROUS_ULP and la["atrous"] == levels
+                    and sum(la.values()) == levels
+                    and torch.isfinite(got).all()):
+                raise AssertionError(f"a-trous kernel vs plain ({tag}, "
+                                     f"{levels}): {ulp} ulp, {la}")
+    del got, want
+    ms_level = {tag: cuda_ms(lambda: atrous_denoise(accum, 3, 0.1, **kw), 10,
+                             2) / 3
+                for tag, kw in (("unguided", {}), ("guided", guides))}
+    plain_level = cuda_ms(lambda: atrous_denoise_plain(accum, 3, 0.1,
+                                                       **guides), 2, 1) / 3
+    flop_tap = FLOP_TAP + 2 * FLOP_TAP_GUIDE + n_exp
+    kernels["atrous"] = dict(
+        route="cuda",
+        source="unityraytracer_tpu_torch/csrc/denoise_kernel.cu",
+        replaces="unityraytracer_tpu/utils/denoise.py:65",
+        max_abs_err=max_abs, max_ulp=max_ulp, shape=[H_p, W_p, 3],
+        plain_shape=[H_p, W_p, 3], ms=ms_level["guided"],
+        ms_unguided=ms_level["unguided"], plain_ms=plain_level,
+        expf_instructions=n_exp, flop_per_tap=flop_tap)
+    # One guided level: the image read and written once, both guides read
+    # once; 25 taps a pixel, expf counted by its instructions.
+    kernels["atrous"]["bound_ms"], kernels["atrous"]["bound_by"] = bound(
+        n_p * 12 * 4, n_p * 25 * flop_tap)
+    kernels["atrous"]["bound_ms_unguided"] = bound(
+        n_p * 6 * 4, n_p * 25 * (FLOP_TAP + n_exp))[0]
+    log("atrous:", json.dumps(kernels["atrous"]))
+
+    # 7c. The live preview with its HTTP view.
+    tmp = tempfile.mkdtemp(prefix="urt_preview_")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        rw = Renderer(scene_np, cam_main, cfg_m, accel=r.accel, seed=19,
+                      device="cuda")
+        ticks = []
+        png = os.path.join(tmp, "preview.png")
+        _, la = counted(lambda: rw.watch(
+            png, every=4, frames=12, denoise=True, guided=True,
+            http_port=port,
+            on_update=lambda rr: ticks.append(dict(rr.stats["tick"]))))
+        by_path["preview"] = la
+        try:
+            got = {}
+            for url in ("/", "/preview.png"):
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{url}",
+                                            timeout=30) as resp:
+                    got[url] = (resp.status, len(resp.read()))
+        finally:
+            rw._preview_server.shutdown()
+            rw._preview_server.server_close()
+        med = {k: float(np.median([t[k] for t in ticks])) for k in ticks[0]}
+        log(f"7c watch 12 frames, every 4, guided denoise: {len(ticks)} "
+            f"ticks, median step {med['step_ms']:.2f} ms, denoise "
+            f"{med['denoise_ms']:.2f} ms, PNG {med['png_ms']:.2f} ms; "
+            f"GET {got}; launches {la}")
+        if not (rw.sample_count == 12 and len(ticks) == 3
+                and all(v[0] == 200 and v[1] > 0 for v in got.values())
+                and la["atrous"] == 9 and la["trace"] == 3
+                and la["path"] == 12):
+            raise AssertionError(f"watch: samples {rw.sample_count}, ticks "
+                                 f"{len(ticks)}, GET {got}, launches {la}")
+        del rw
+
+        # 7d. The AOV export at 1080p, read back part by part.
+        exr = os.path.join(tmp, "aovs.exr")
+        t0 = time.perf_counter()
+        _, la = counted(lambda: rp.save_aovs(exr))
+        save_s = time.perf_counter() - t0
+        half = lambda a: a.astype(np.float16).astype(np.float32)  # noqa: E731
+        gh = {k: v.cpu().numpy() for k, v in g.items()}
+        want = {"beauty": rp.image, "albedo": gh["albedo"],
+                "normal": gh["normal"], "depth": gh["depth"][..., None],
+                "emission": gh["emission"]}
+        t0 = time.perf_counter()
+        ok = {name: bool(np.array_equal(load_exr(exr, part=name), half(a)))
+              for name, a in want.items()}
+        load_s = time.perf_counter() - t0
+        log(f"7d save_aovs 1920x1080, 5 parts: {save_s:.3f} s, "
+            f"{os.path.getsize(exr)} bytes; read back {load_s:.3f} s, parts "
+            f"equal to the half-rounded buffers {ok}; launches {la}")
+        if not all(ok.values()) or la["trace"] != 1:
+            raise AssertionError(f"save_aovs round trip: {ok}, {la}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 7e. The per-stage device profile of three frames.
+    prof, la = counted(lambda: rp.profile(3))
+    log("7e profile(3):\n" + prof.report())
+    log(f"7e launches {la}")
+    if not all(prof.stages_ms.get(k, 0.0) > 0.0
+               for k in ("path", "env", "rng")) or la["path"] != 4:
+        raise AssertionError(f"profile: stages {prof.stages_ms}, {la}")
+    del rp, accum, g, guides
+
     for k in kernels:
-        use = "bf16" if k == "env_planes" else "main"
+        use = {"env_planes": "bf16", "trace": "preview",
+               "atrous": "preview"}.get(k, "main")
         kernels[k]["launches"] = by_path[use][k]
         kernels[k]["launches_by_path"] = {p_: v[k] for p_, v in
                                           by_path.items()}
-    if kernels["env_planes"]["launches"] < 1:
-        raise AssertionError("the byte-plane env kernel never launched")
+    for k in ("env_planes", "trace", "atrous"):
+        if kernels[k]["launches"] < 1:
+            raise AssertionError(f"kernel {k!r} never launched on its path")
 
     _build.raise_on_overflow(dev)
     log(card)
     keys = ("route", "source", "replaces", "launches",
             "launches_megakernel_false", "launches_by_path", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "plain_shape")
+            "max_ulp", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "shape", "plain_shape")
     for v in kernels.values():
         v["library_ms"] = None     # no single PyTorch call computes these
     log(json.dumps({"kernels": [

@@ -20,7 +20,11 @@ exp2f/sqrtf/division, which torch's CUDA kernels share, so its nine output
 rows and its 16 resume-state rows are bit-identical. The split
 frame equals the unsplit one to 1e-5 (only the order of the radiance
 additions differs); a chunked frame equals the spp-weighted sum of its
-sub-frames to rtol 1e-4, atol 5e-5."""
+sub-frames to rtol 1e-4, atol 5e-5. The a-trous kernel runs its plain
+version's float32 operations in the same order with IEEE rounding, and
+both take exp from the CUDA math library, so it is held to ATROUS_ULP ulp
+(0: bit for bit) at every level; the AOVs through the closest-hit kernel
+equal their plain route's where both hit the same primitive."""
 
 from pathlib import Path
 
@@ -37,10 +41,14 @@ from unityraytracer_tpu_torch.ops.cuda_path import path_trace, path_trace_plain
 from unityraytracer_tpu_torch.ops.cuda_trace import (KernelScene,
                                                      closest_hit_plain,
                                                      trace_hits)
-from unityraytracer_tpu_torch.render import (bounce_rows, bounce_rows_plain,
-                                             mega_inputs, render_frame,
-                                             split_capacity)
-from unityraytracer_tpu_torch.utils.image import rmse
+from unityraytracer_tpu_torch.render import (aov_buffers, bounce_rows,
+                                             bounce_rows_plain, mega_inputs,
+                                             pixel_center_rays, render_aovs,
+                                             render_frame, split_capacity)
+from unityraytracer_tpu_torch.utils.denoise import (ATROUS_ULP,
+                                                    atrous_denoise,
+                                                    atrous_denoise_plain)
+from unityraytracer_tpu_torch.utils.image import rmse, ulp_distance
 
 pytestmark = pytest.mark.cuda
 
@@ -333,3 +341,76 @@ def test_trace_counts_match_the_twin(dev):
     assert torch.equal(pc, counts)
     for x, y in zip(a, b):
         assert torch.equal(torch.stack(x), torch.stack(y))
+
+
+@pytest.mark.parametrize("guides", [(), ("albedo",), ("albedo", "normal")])
+def test_atrous_kernel_matches_plain(dev, guides):
+    # A ragged 37x53 image over 5 levels: from level 3 on the dilated taps
+    # reach past every edge, so the clamp is exercised on all sides.
+    g = torch.Generator(device=dev).manual_seed(len(guides))
+    img = torch.rand((37, 53, 3), generator=g, device=dev) ** 3 * 4
+    img[:, 20:] += 0.5
+    albedo = torch.rand((37, 53, 3), generator=g, device=dev)
+    normal = torch.nn.functional.normalize(
+        torch.randn((37, 53, 3), generator=g, device=dev), dim=-1)
+    kw = {k: v for k, v in (("albedo", albedo), ("normal", normal))
+          if k in guides}
+    src = img.clone()
+    for levels in (1, 5):
+        before = _build.LAUNCHES["atrous"]
+        got = atrous_denoise(img, levels, 0.3, **kw)
+        assert _build.LAUNCHES["atrous"] == before + levels
+        want = atrous_denoise_plain(img, levels, 0.3, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == img.shape and torch.isfinite(got).all()
+        assert ulp_distance(got, want) <= ATROUS_ULP
+    assert torch.equal(img, src)                       # input untouched
+
+
+def test_aovs_kernel_matches_plain_route(dev):
+    s = fixtures.bench_scene(2000)
+    cfg = RenderConfig(width=96, height=64, spp=1, bounces=2, tracer="pallas")
+    cam = fixtures.bench_camera(96 / 64)
+    r = Renderer(s, cam, cfg, seed=0, device="cuda")
+    before = dict(_build.LAUNCHES)
+    g = r.aovs()
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before
+            if _build.LAUNCHES[k] != before[k]} == {"trace": 1}
+    ro, rd = pixel_center_rays(cam, 64, 96, dev)
+    alive = torch.ones(96 * 64, dtype=torch.bool, device=dev)
+    hk = trace_hits(r.accel, ro, rd, alive)
+    hp = closest_hit_plain(r.accel, ro, rd, alive)
+    _build.raise_on_overflow(dev)
+    gk, gp = aov_buffers(hk, 64, 96), aov_buffers(hp, 64, 96)
+    for k in g:                                # the same rays, one kernel
+        assert torch.equal(g[k], gk[k])
+    assert 0.2 < g["hit"].float().mean().item() < 1.0
+    same = (hk.prim == hp.prim).reshape(64, 96)
+    assert same.float().mean().item() >= 0.9999
+    assert torch.equal(gk["hit"][same], gp["hit"][same])
+    for k in ("albedo", "emission"):
+        assert torch.equal(gk[k][same], gp[k][same]), k
+    torch.testing.assert_close(gk["normal"][same], gp["normal"][same],
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gk["depth"][same], gp["depth"][same],
+                               rtol=1e-5, atol=0)
+    # The brute route gives the same buffers (no random numbers).
+    gb = render_aovs(r.scene, cfg.replace(tracer="brute"), cam)
+    assert torch.equal(gb["hit"], g["hit"])
+    torch.testing.assert_close(gb["depth"], g["depth"], rtol=1e-5, atol=0)
+
+
+def test_save_aovs_roundtrip_on_card(dev, tmp_path):
+    from unityraytracer_tpu_torch.models.exr import load_exr
+    cfg = RenderConfig(width=64, height=48, spp=1, bounces=3, tracer="pallas")
+    r = Renderer(fixtures.scene1(), fixtures.scene1_camera(64 / 48), cfg,
+                 seed=1, device="cuda").step(2)
+    g = {k: v.cpu().numpy() for k, v in r.aovs().items()}
+    path = r.save_aovs(str(tmp_path / "aovs.exr"))
+    half = lambda a: a.astype(np.float16).astype(np.float32)  # noqa: E731
+    want = {"beauty": r.image, "albedo": g["albedo"], "normal": g["normal"],
+            "depth": g["depth"][..., None], "emission": g["emission"]}
+    for name, a in want.items():
+        np.testing.assert_array_equal(load_exr(path, part=name), half(a))
+    den = r.denoised_image(iterations=3, guided=True)
+    assert den.shape == (48, 64, 3) and np.isfinite(den).all()

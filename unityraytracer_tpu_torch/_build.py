@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "env" and "env_planes" count the sky-tap kernel by its fetch: the packed
 # words or the byte planes.
 LAUNCHES = {"path": 0, "trace": 0, "env": 0, "env_planes": 0, "uniform": 0,
-            "bounce_rows": 0}
+            "bounce_rows": 0, "atrous": 0}
 # Bounces whose keys fit BounceArgs (URT_MAX_BOUNCES in uniform_kernel.cu).
 MAX_BOUNCES = 32
 
@@ -152,8 +152,10 @@ def lib() -> ctypes.CDLL:
             p, i, i, i, p]
         so.urt_uniform.argtypes = [u32, u32, p, ctypes.c_longlong, p]
         so.urt_bounce_rows.argtypes = [p, p, p]
+        f32 = ctypes.c_float
+        so.urt_atrous.argtypes = [p, p, p, p, i, i, i, f32, f32, f32, p]
         for fn in (so.urt_trace_hits, so.urt_path_trace, so.urt_sky_tap,
-                   so.urt_uniform, so.urt_bounce_rows):
+                   so.urt_uniform, so.urt_bounce_rows, so.urt_atrous):
             fn.restype = ctypes.c_int
         _LIB = so
     return _LIB

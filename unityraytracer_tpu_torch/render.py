@@ -13,9 +13,14 @@ The port of the JAX package's ``render.py``:
   fetches and composes into the radiance in one launch (``_env_tap``).
 * ``render_frame``: the best path for a config, in ``spp_chunk`` sub-frames
   when the config asks for them.
+* ``render_aovs``: the first-hit G-buffer at pixel centres, one launch of
+  the closest-hit kernel.
 * ``progressive_step``: the 1/(N+1) running mean.
+* ``PreviewExportMixin``: live preview (``watch`` with its HTTP view), the
+  a-trous ``denoised_image``, AOVs and their multi-part EXR export.
 * ``Renderer``: the stateful frame loop with the JAX package's key chains,
-  whole frames or ``dispatch_bands`` bands.
+  whole frames or ``dispatch_bands`` bands, and ``profile``, its per-stage
+  device breakdown.
 
 Every random number is drawn with ``rng.py`` from the same keys in the same
 layout as the JAX package (the block-native ``_draw_fn`` convention), so a
@@ -28,6 +33,7 @@ import ctypes
 import dataclasses
 import math
 import os
+import tempfile
 import time
 from typing import Callable, Optional
 
@@ -44,8 +50,9 @@ from .ops.cuda_env import sky_tap
 from .ops.cuda_path import path_trace
 from .ops.cuda_trace import KernelScene, make_pallas_tracer
 from .ops.sampling import sample_unit_disk
-from .ops.shade import sample_skybox, sample_skybox_rgbe, shade
+from .ops.shade import MISS_T, sample_skybox, sample_skybox_rgbe, shade
 from .scene import Scene
+from .utils.denoise import atrous_denoise
 from .utils.image import tonemap_aces, write_png
 
 # Rays run in 8x16 pixel-block order on the megakernel path, as in the JAX
@@ -538,6 +545,52 @@ def render_frame(scene: Scene, cfg: RenderConfig, camera: Camera, key,
                          rows=rows)
 
 
+def aov_buffers(hit, H: int, W: int) -> dict:
+    """The G-buffer of first hits in pixel order: albedo, normal and
+    emission (H, W, 3) and depth (H, W), zero where ``t >= MISS_T`` (a
+    miss, which the closest-hit kernel writes as t = INF, or a dead ray),
+    and the bool hit mask."""
+    hitm = hit.t < MISS_T
+
+    def img3(v3):
+        return torch.stack([torch.where(hitm, c, 0.0).reshape(H, W)
+                            for c in v3], dim=-1)
+
+    return dict(albedo=img3(hit.albedo), normal=img3(hit.normal),
+                emission=img3(hit.emission),
+                depth=torch.where(hitm, hit.t, 0.0).reshape(H, W),
+                hit=hitm.reshape(H, W))
+
+
+def pixel_center_rays(camera: Camera, H: int, W: int, device):
+    """Camera rays through the pixel centres in pixel order (row 0 the
+    top), no jitter, the lens sample at (0, 0)."""
+    N = H * W
+    px = torch.arange(W, device=device).expand(H, W)
+    py = (H - 1 - torch.arange(H, device=device))[:, None].expand(H, W)
+    u = ((px.to(torch.float32) + 0.5) / W * 2.0 - 1.0).reshape(N)
+    v = ((py.to(torch.float32) + 0.5) / H * 2.0 - 1.0).reshape(N)
+    zero = torch.zeros(N, dtype=torch.float32, device=device)
+    return camera_rays_soa(camera, u, v, zero, zero)
+
+
+def render_aovs(scene: Scene, cfg: RenderConfig, camera: Camera,
+                accel=None) -> dict:
+    """First-hit G-buffer at pixel centres: ``aov_buffers`` of one trace of
+    ``pixel_center_rays``, as tensors on the scene's device. No random
+    numbers, so every tracer gives the same buffers; with
+    ``tracer="pallas"`` on the card it is one launch of the closest-hit
+    kernel on H*W rays. The guides of the guided a-trous denoiser and the
+    AOV export (``Renderer.save_aovs``)."""
+    H, W = cfg.height, cfg.width
+    device = _scene_device(scene)
+    ro, rd = pixel_center_rays(camera, H, W, device)
+    tracer = get_tracer(scene, cfg, accel)
+    hit = tracer(ro, rd, torch.ones(H * W, dtype=torch.bool, device=device),
+                 bin_rays=False)
+    return aov_buffers(hit, H, W)
+
+
 def progressive_step(state: RenderState, frame: torch.Tensor) -> RenderState:
     """Running mean with weight 1/(N+1), in float32 (the weights are host
     floats, so the step never waits for the device)."""
@@ -546,7 +599,135 @@ def progressive_step(state: RenderState, frame: torch.Tensor) -> RenderState:
     return RenderState(accum=accum, n_samples=state.n_samples + 1)
 
 
-class Renderer:
+class PreviewExportMixin:
+    """Live preview, denoise, and AOV/EXR export (the JAX package's mixin of
+    the same name). Hosts provide ``step``, ``image``, ``sample_count``,
+    ``state``, ``config``, ``scene``, ``camera`` and ``_aov_accel()``, an
+    accel a single-device ``render_aovs`` trace can use (by default
+    ``self.accel``; a sharded renderer overrides it)."""
+
+    def _aov_accel(self):
+        return self.accel
+
+    def watch(self, path: str = "preview.png", every: int = 4,
+              frames: Optional[int] = None, denoise: bool = True,
+              guided: bool = False, http_port: Optional[int] = None,
+              on_update: Optional[Callable] = None):
+        """Progressive live preview for a headless box: render ``every``
+        frames per tick, write the (optionally denoised) tonemapped
+        accumulator to ``path`` atomically, repeat until ``frames`` samples
+        have accumulated (None: until KeyboardInterrupt).
+
+        ``http_port`` serves the refreshing preview at
+        ``http://localhost:<port>/`` from a daemon thread. After every tick
+        ``self.stats["tick"]`` holds its host milliseconds (``step_ms``,
+        ``denoise_ms``, ``png_ms``), and ``on_update`` (if given) is called
+        with this renderer."""
+        if http_port is not None:
+            self._serve_preview(path, http_port)
+        try:
+            while frames is None or self.sample_count < frames:
+                n = every if frames is None \
+                    else min(every, frames - self.sample_count)
+                t0 = time.perf_counter()
+                self.step(n)
+                t1 = time.perf_counter()
+                img = (self.denoised_image(guided=guided) if denoise
+                       else self.image)
+                t2 = time.perf_counter()
+                fd, tmp = tempfile.mkstemp(
+                    dir=os.path.dirname(os.path.abspath(path)) or ".",
+                    suffix=".png")
+                os.close(fd)
+                write_png(tmp, tonemap_aces(img))
+                os.replace(tmp, path)     # atomic: readers never see a torn file
+                t3 = time.perf_counter()
+                self.stats["tick"] = dict(step_ms=(t1 - t0) * 1e3,
+                                          denoise_ms=(t2 - t1) * 1e3,
+                                          png_ms=(t3 - t2) * 1e3)
+                if on_update is not None:
+                    on_update(self)
+        except KeyboardInterrupt:
+            pass
+        return self
+
+    def _serve_preview(self, path: str, port: int) -> None:
+        """Daemon HTTP thread on 127.0.0.1: / auto-refreshes, /preview.png
+        is the file. The server is ``self._preview_server`` (its
+        ``shutdown()`` stops the thread)."""
+        import http.server
+        import threading
+
+        html = (b"<html><head><meta http-equiv='refresh' content='2'>"
+                b"<title>unityraytracer_tpu_torch preview</title></head>"
+                b"<body style='background:#111;margin:0'>"
+                b"<img src='/preview.png' style='width:100%'></body></html>")
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(h):
+                if h.path == "/preview.png":
+                    try:
+                        with open(path, "rb") as f:
+                            data = f.read()
+                    except OSError:
+                        h.send_response(404)
+                        h.end_headers()
+                        return
+                    h.send_response(200)
+                    h.send_header("Content-Type", "image/png")
+                    h.send_header("Cache-Control", "no-store")
+                    h.end_headers()
+                    h.wfile.write(data)
+                else:
+                    h.send_response(200)
+                    h.send_header("Content-Type", "text/html")
+                    h.end_headers()
+                    h.wfile.write(html)
+
+            def log_message(h, *a):      # quiet
+                pass
+
+        srv = http.server.ThreadingHTTPServer(("127.0.0.1", port), Handler)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        self._preview_server = srv
+
+    def aovs(self) -> dict:
+        """First-hit G-buffer (albedo/normal/emission/depth/hit) as tensors
+        on the renderer's device; recomputed per call (one trace)."""
+        return render_aovs(self.scene, self.config, self.camera,
+                           accel=self._aov_accel())
+
+    def denoised_image(self, iterations: int = 3, sigma_color: float = 0.1,
+                       guided: bool = False) -> np.ndarray:
+        """Edge-preserving a-trous denoise of the current accumulator
+        (``utils/denoise.py``; on the card one kernel launch per level), as
+        an (H, W, 3) float32 array; the accumulator itself stays untouched
+        and unbiased. ``guided=True`` adds albedo/normal edge-stopping from
+        the first-hit G-buffer."""
+        kw = {}
+        if guided:
+            g = self.aovs()
+            kw = dict(albedo=g["albedo"], normal=g["normal"])
+        return atrous_denoise(self.state.accum, iterations, sigma_color,
+                              **kw).cpu().numpy()
+
+    def save_aovs(self, path: str, tonemapped_beauty: bool = False) -> str:
+        """Write beauty + G-buffer AOVs as one multi-part EXR (parts:
+        beauty, albedo, normal, depth, emission; half floats, ZIP)."""
+        from .models.exr import write_exr_multipart
+
+        g = {k: v.cpu().numpy() for k, v in self.aovs().items()}
+        beauty = self.image
+        if tonemapped_beauty:
+            beauty = tonemap_aces(beauty)
+        write_exr_multipart(path, [
+            ("beauty", beauty), ("albedo", g["albedo"]),
+            ("normal", g["normal"]), ("depth", g["depth"]),
+            ("emission", g["emission"])])
+        return path
+
+
+class Renderer(PreviewExportMixin):
     """Stateful renderer around the pure functions: holds (scene, camera,
     config) on ``device`` — the card unless the caller asks for the CPU
     (``device="cpu"``, where every kernel runs its plain version) —
@@ -643,6 +824,21 @@ class Renderer:
         if self.device.type == "cuda":
             _build.raise_on_overflow(self.device)
         return self
+
+    def profile(self, n_frames: int = 1):
+        """Per-stage device-time breakdown of the frame step
+        (``utils/profiling.py``): one warm-up frame outside the profiled
+        window, then ``n_frames`` frames inside it, each as ``step(1,
+        fused=False)`` renders it — in bands when the config sets
+        ``dispatch_bands``. The result lands in ``self.stats["device"]``
+        and is returned; every frame advances the accumulator."""
+        from .utils.profiling import profile_stages
+
+        self.step(1)
+        prof = profile_stages(lambda: self.step(n_frames, fused=False),
+                              device=self.device)
+        self.stats["device"] = prof
+        return prof
 
     @property
     def image(self) -> np.ndarray:

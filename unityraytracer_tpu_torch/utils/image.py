@@ -65,3 +65,14 @@ def rmse(a: np.ndarray, b: np.ndarray) -> float:
     if a.shape != b.shape:
         raise ValueError(f"shape mismatch {a.shape} vs {b.shape}")
     return float(np.sqrt(np.mean((a - b) ** 2)))
+
+
+def ulp_distance(a, b) -> int:
+    """Largest distance in units in the last place between two float32
+    tensors of one shape (0 where the bits agree)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
