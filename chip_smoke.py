@@ -76,6 +76,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    e. ``profile(3)``: its report, with the path, env and rng stages
       non-zero.
 
+8. the command line (``unityraytracer_tpu_torch/__main__.py``) at the main
+   path's width, every renderer it builds checked to hold all its tensors on
+   the card and every run's launch counts asserted:
+   a. ``info --scene bench`` prints the card's name;
+   b. ``render --scene bench --width 1920 --height 1080 --frames 32 --aovs
+      ... --denoise`` in this process: 32 path, 32 sky-tap, 128
+      ``urt_uniform``, 32 ``urt_bounce_rows``, 2 closest-hit (the denoise's
+      guides, the export) and 3 a-trous launches; the accumulator bit-equal
+      to a hand-built ``Renderer(...).step(32)``, the PNG's bytes and the
+      EXR's parts equal to that renderer's; seconds by stage;
+   c. the same render as a child process (``python3 -m
+      unityraytracer_tpu_torch``) with its wall time from start to exit, its
+      exit code checked, and a second child that times start-up alone;
+   d. ``render --obj --env``: the bench scene's 100,000+ triangles written
+      with ``save_obj`` and a two-material MTL, a 2048x1024 ``.hdr`` written
+      with ``save_hdr``; parse and read times; the triangle count; the
+      loaded scene at 192x96 x 4 bounces within RMSE 1e-3 of the brute
+      tracer;
+   e. ``render --env`` on 1024x512 ``.exr`` skies written with PIZ (loaded
+      equal to written) and DWAA (within 0.02 x max of the half-rounded
+      map), the sky tap launched on each;
+   f. ``render --unity`` on ``UNITY_SCENE`` (2 spheres, 14 triangles, the
+      settings line);
+   g. ``preview --frames 12 --every 4 --port p`` with both URLs fetched;
+   h. ``--shard rows``, ``--tracer cluster`` and ``--rng rbg`` raise, and
+      ``preview --shard rows`` returns 2.
+
 Phase 3 also holds the path kernel's 16 resume-state rows against the plain
 version's (bit for bit, at 192x96 x 4 and on the 1080p x 8 subset with two
 bounces).
@@ -285,6 +312,435 @@ def card_line() -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def _unity_object(fid, name, pos, scale, color, shape) -> str:
+    """One GameObject of Unity's text serialization with a RayTraceObject
+    component, and a SphereCollider (``shape`` a radius) or a MeshFilter on
+    a built-in mesh (``shape`` its fileID)."""
+    geometry = (f"--- !u!135 &{fid + 3}\nSphereCollider:\n"
+                f"  m_GameObject: {{fileID: {fid}}}\n  m_Enabled: 1\n"
+                f"  m_Radius: {shape}\n  m_Center: {{x: 0, y: 0, z: 0}}\n"
+                if isinstance(shape, float) else
+                f"--- !u!33 &{fid + 3}\nMeshFilter:\n"
+                f"  m_GameObject: {{fileID: {fid}}}\n"
+                f"  m_Mesh: {{fileID: {shape}, guid: "
+                "0000000000000000e000000000000000, type: 0}\n")
+    return (f"--- !u!1 &{fid}\nGameObject:\n  m_Name: {name}\n"
+            "  m_IsActive: 1\n"
+            f"--- !u!4 &{fid + 1}\nTransform:\n"
+            f"  m_GameObject: {{fileID: {fid}}}\n"
+            "  m_LocalRotation: {x: 0, y: 0.38268343, z: 0, w: 0.92387953}\n"
+            f"  m_LocalPosition: {{x: {pos[0]}, y: {pos[1]}, z: {pos[2]}}}\n"
+            f"  m_LocalScale: {{x: {scale}, y: {scale}, z: {scale}}}\n"
+            "  m_Father: {fileID: 0}\n"
+            f"--- !u!114 &{fid + 2}\nMonoBehaviour:\n"
+            f"  m_GameObject: {{fileID: {fid}}}\n  m_Enabled: 1\n"
+            "  m_Script: {fileID: 11500000, guid: "
+            "7fba285130b2c3342be00e9cfa2e3c7c,\n    type: 3}\n"
+            f"  albedoColor: {{r: {color[0]}, g: {color[1]}, b: {color[2]}, "
+            "a: 1}\n  smoothness: 0.5\n" + geometry)
+
+
+# A small Unity scene: two spheres by SphereCollider, a built-in cube
+# (fileID 10202, 12 triangles) and quad (10210, 2 triangles), and a camera
+# that carries the RayTraceMaster settings.
+UNITY_SCENE = (
+    "%YAML 1.1\n%TAG !u! tag:unity3d.com,2011:\n"
+    + _unity_object(100, "Ball", (-1.5, 1, 0), 2, (0.9, 0.2, 0.2), 0.5)
+    + _unity_object(110, "Pearl", (0.5, 0.6, -1.5), 1.2, (0.9, 0.9, 0.8), 0.5)
+    + _unity_object(120, "Box", (1.5, 0.75, 0.5), 1.5, (0.2, 0.4, 0.8), 10202)
+    + _unity_object(130, "Card", (0, 1.5, 3), 3, (0.3, 0.8, 0.3), 10210)
+    + "--- !u!1 &160\nGameObject:\n  m_Name: Main Camera\n  m_IsActive: 1\n"
+    "--- !u!4 &161\nTransform:\n  m_GameObject: {fileID: 160}\n"
+    "  m_LocalRotation: {x: 0.08715578, y: 0, z: 0, w: 0.9961947}\n"
+    "  m_LocalPosition: {x: 0, y: 2.5, z: -7}\n"
+    "  m_LocalScale: {x: 1, y: 1, z: 1}\n  m_Father: {fileID: 0}\n"
+    "--- !u!20 &162\nCamera:\n  m_GameObject: {fileID: 160}\n"
+    "  field of view: 50\n"
+    "--- !u!114 &163\nMonoBehaviour:\n  m_GameObject: {fileID: 160}\n"
+    "  m_Enabled: 1\n  m_Script: {fileID: 11500000, guid: "
+    "b2e91413b60a86f49ac7969f1637f0cd, type: 3}\n"
+    "  numBounces: 5\n  numRays: 2\n")
+
+
+def tensors_of(obj) -> list:
+    """Every tensor reachable from ``obj`` through dataclass fields, dicts,
+    lists and tuples."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        kids = list(obj.values())
+    elif isinstance(obj, (list, tuple)):
+        kids = list(obj)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        kids = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    else:
+        return []
+    return [t for k in kids for t in tensors_of(k)]
+
+
+def command_line_phase(counted, bits_equal) -> dict:
+    """Phase 8: the command line at full width, on the card. Returns the
+    launch counts of its paths by name. Raises on any failure; a renderer
+    the command line built must hold every tensor on the card."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    import unityraytracer_tpu_torch.__main__ as cli
+    from unityraytracer_tpu_torch import RenderConfig, Renderer
+    from unityraytracer_tpu_torch.models import fixtures, skybox
+    from unityraytracer_tpu_torch.models.exr import load_exr, write_exr
+    from unityraytracer_tpu_torch.models.obj import save_obj
+    from unityraytracer_tpu_torch.utils.image import (rmse, tonemap_aces,
+                                                      write_png)
+
+    card_name = torch.cuda.get_device_name(0)
+    by_path = {}
+    W, H, FRAMES, BOUNCES = MAIN["width"], MAIN["height"], 32, MAIN["bounces"]
+    full = ["--width", str(W), "--height", str(H), "--bounces", str(BOUNCES)]
+    bench = ["--scene", "bench", "--tris", str(N_TRIS)]
+
+    def run(argv):
+        """``main(argv)`` in this process -> (exit code, its stdout and
+        stderr, the renderer it built, seconds by stage, launch counts)."""
+        built, secs = [], {}
+        make, build_scene, load_env = (cli._make_renderer, cli._build_scene,
+                                       skybox.load_environment)
+
+        def timed(name, fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                secs[name] = time.perf_counter() - t0
+                return out
+            return wrapper
+
+        def make_and_keep(args):
+            built.append(make(args))
+            return built[-1]
+
+        cli._make_renderer = timed("renderer", make_and_keep)
+        cli._build_scene = timed("scene", build_scene)
+        skybox.load_environment = timed("env_load", load_env)
+        out, err = io.StringIO(), io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc, la = counted(lambda: cli.main(argv))
+            secs["main"] = time.perf_counter() - t0
+        finally:
+            cli._make_renderer, cli._build_scene = make, build_scene
+            skybox.load_environment = load_env
+        r = built[0] if built else None
+        if r is not None:
+            held = tensors_of(vars(r))
+            off = [tuple(t.shape) for t in held if not t.is_cuda]
+            found = {id(t) for t in held}
+            if off or r.device.type != "cuda" or not {
+                    id(r.state.accum), id(r.scene.skybox_rgbe),
+                    *map(id, r.accel.tables.values())} <= found:
+                raise AssertionError(f"{argv[:3]}: the renderer holds tensors "
+                                     f"off the card ({off}), or the walk "
+                                     "missed its accumulator, sky or tables")
+        return rc, out.getvalue(), err.getvalue(), r, secs, la
+
+    def expect(la, frames, trace=0, atrous=0):
+        want = dict(path=frames, env=frames, uniform=4 * frames,
+                    bounce_rows=frames, trace=trace, atrous=atrous,
+                    env_planes=0)
+        if la != want:
+            raise AssertionError(f"launches {la}, expected {want}")
+
+    tmp = tempfile.mkdtemp(prefix="urt_cli_")
+    try:
+        # 8a. info: the torch device, not a backend.
+        rc, out, _, _, _, _ = run(["info", *bench])
+        log("8a info:", out.strip().replace("\n", " | "))
+        lines = out.splitlines()
+        if not (rc == 0 and lines[0].startswith("device: cuda  count: ")
+                and card_name in lines[0] and "backend" not in out
+                and f"{fixtures.bench_scene(N_TRIS).num_triangles} triangles"
+                in lines[1]):
+            raise AssertionError(f"info printed {out!r}")
+
+        # 8b. render at 1080p x 8 bounces x 32 frames with AOVs and the
+        # guided denoise, in this process: launches, files, and the image
+        # against a renderer built by hand.
+        png, exr = os.path.join(tmp, "bench.png"), os.path.join(tmp, "aovs.exr")
+        argv = ["render", *bench, *full, "--frames", str(FRAMES),
+                "--aovs", exr, "--denoise", "-o", png]
+        rc, out, _, r, secs, la = run(argv)
+        by_path["cli_render"] = la
+        # One trace for the denoise's guides and one for the export.
+        expect(la, FRAMES, trace=2, atrous=3)
+        cfg = RenderConfig(width=W, height=H, spp=1, bounces=BOUNCES,
+                           tracer="pallas", wavefront=True)
+        t0 = time.perf_counter()
+        hand = Renderer(fixtures.bench_scene(N_TRIS),
+                        fixtures.bench_camera(W / H), cfg, seed=0,
+                        device="cuda")
+        hand_setup = time.perf_counter() - t0
+        hand.step(FRAMES)
+        same = bits_equal(r.state.accum, hand.state.accum)
+        want_png = write_png(os.path.join(tmp, "hand.png"),
+                             tonemap_aces(hand.denoised_image(guided=True)))
+        png_same = open(png, "rb").read() == open(want_png, "rb").read()
+        half = lambda a: a.astype(np.float16).astype(np.float32)  # noqa: E731
+        g = {k: v.cpu().numpy() for k, v in hand.aovs().items()}
+        parts = {"beauty": hand.image, "albedo": g["albedo"],
+                 "normal": g["normal"], "depth": g["depth"][..., None],
+                 "emission": g["emission"]}
+        exr_same = {k: bool(np.array_equal(load_exr(exr, part=k), half(a)))
+                    for k, a in parts.items()}
+        lines = out.strip().splitlines()
+        writes = secs["main"] - secs["renderer"] - r.stats["seconds"]
+        log(f"8b render bench 1920x1080x8, 32 frames, --aovs --denoise: "
+            f"{lines}; accumulator bit-equal to a hand-built "
+            f"Renderer.step(32) {same}; PNG bytes equal {png_same} "
+            f"({os.path.getsize(png)} bytes); EXR parts equal {exr_same}; "
+            f"launches {la}")
+        log(f"8b in-process seconds: main {secs['main']:.3f} = scene "
+            f"{secs['scene']:.3f} + accel build and upload "
+            f"{secs['renderer'] - secs['scene']:.3f} + frames "
+            f"{r.stats['seconds']:.3f} + denoise, PNG and EXR writes "
+            f"{writes:.3f} (hand-built Renderer setup {hand_setup:.3f})")
+        if not (rc == 0 and same and png_same and all(exr_same.values())
+                and lines[0].startswith(f"wrote {png}: {FRAMES} samples, ")
+                and lines[0].endswith(" Mrays/s") and lines[1] ==
+                f"wrote {exr} (beauty/albedo/normal/depth/emission)"):
+            raise AssertionError("8b: the command line's render differs from "
+                                 "the hand-built renderer's")
+        inproc = dict(secs, frames=r.stats["seconds"], writes=writes)
+        del r, hand, g, parts
+
+        # 8c. The same render as a child process: what a user of the
+        # command line waits for, from process start to exit; and the
+        # start-up alone (interpreter, imports, CUDA context, library load).
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        child_png = os.path.join(tmp, "child.png")
+        child_argv = [sys.executable, "-m", "unityraytracer_tpu_torch",
+                      *argv[:-1], child_png]
+        child_argv[child_argv.index(exr)] = os.path.join(tmp, "child.exr")
+        t0 = time.perf_counter()
+        child = subprocess.run(child_argv, cwd=HERE, env=env, timeout=600,
+                               capture_output=True, text=True)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"child render exited {child.returncode}: "
+                                 f"{child.stderr[-2000:]}")
+        child_same = open(child_png, "rb").read() == open(png, "rb").read()
+        probe = ("import time, json; t0 = time.perf_counter(); import torch; "
+                 "t1 = time.perf_counter(); "
+                 "import unityraytracer_tpu_torch.__main__; "
+                 "from unityraytracer_tpu_torch import _build; "
+                 "t2 = time.perf_counter(); "
+                 "torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+                 "t3 = time.perf_counter(); _build.lib(); "
+                 "t4 = time.perf_counter(); "
+                 "print(json.dumps(dict(import_torch=t1 - t0, "
+                 "import_package=t2 - t1, cuda_context=t3 - t2, "
+                 "library_load=t4 - t3)))")
+        t0 = time.perf_counter()
+        start = subprocess.run([sys.executable, "-c", probe], cwd=HERE,
+                               env=env, timeout=600, capture_output=True,
+                               text=True)
+        probe_s = time.perf_counter() - t0
+        if start.returncode != 0:
+            raise AssertionError(f"start-up probe exited {start.returncode}: "
+                                 f"{start.stderr[-2000:]}")
+        startup = json.loads(start.stdout.strip().splitlines()[-1])
+        log(f"8c child `python3 -m unityraytracer_tpu_torch render` (same "
+            f"arguments): exit 0, wall {child_s:.3f} s from start to exit, "
+            f"{child.stdout.strip().splitlines()}; PNG equal to the "
+            f"in-process one {child_same}")
+        log(f"8c start-up alone (a second child): wall {probe_s:.3f} s, of it "
+            + ", ".join(f"{k} {v:.3f}" for k, v in startup.items()))
+        log("8c cli wall split: " + json.dumps(dict(
+            wall_s=child_s, startup_s=probe_s, scene_s=inproc["scene"],
+            accel_s=inproc["renderer"] - inproc["scene"],
+            frames_s=inproc["frames"], writes_s=inproc["writes"])))
+        if not child_same:
+            raise AssertionError("the child's PNG differs from the "
+                                 "in-process render's")
+
+        # 8d. render --obj --env: a mesh of >= 100,000 triangles with two
+        # MTL materials, under a 2048x1024 .hdr sky, both written here.
+        tr = fixtures.bench_scene(N_TRIS).triangles
+        n_tri = tr.v0.shape[0]
+        verts = np.stack([tr.v0, tr.v1, tr.v2], axis=1).reshape(-1, 3)
+        norms = np.stack([tr.n0, tr.n1, tr.n2], axis=1).reshape(-1, 3)
+        obj = os.path.join(tmp, "field.obj")
+        t0 = time.perf_counter()
+        save_obj(obj, verts, np.arange(3 * n_tri).reshape(-1, 3), norms)
+        obj_write_s = time.perf_counter() - t0
+        with open(obj) as f:
+            text = f.read().splitlines()
+        faces = [ln for ln in text if ln.startswith("f ")]
+        rest = [ln for ln in text if not ln.startswith("f ")]
+        with open(obj, "w") as f:
+            f.write("\n".join(["mtllib field.mtl"] + rest + ["usemtl warm"]
+                              + faces[:n_tri // 2] + ["usemtl steel"]
+                              + faces[n_tri // 2:]) + "\n")
+        with open(os.path.join(tmp, "field.mtl"), "w") as f:
+            f.write("newmtl warm\nKd 0.8 0.3 0.2\nKs 0.1 0.1 0.1\nNs 100\n"
+                    "newmtl steel\nKd 0.3 0.3 0.35\nKs 0.6 0.6 0.6\nNs 600\n")
+        from unityraytracer_tpu_torch.models.obj import load_obj_with_materials
+        t0 = time.perf_counter()
+        parsed = load_obj_with_materials(obj)
+        obj_parse_s = time.perf_counter() - t0
+        sky = skybox.sun_sky(1024, 2048)
+        hdr = skybox.save_hdr(os.path.join(tmp, "sky.hdr"), sky)
+        rc, out, _, r, secs, la = run(
+            ["render", "--obj", obj, "--env", hdr, *full, "--frames",
+             str(FRAMES), "-o", os.path.join(tmp, "obj.png")])
+        by_path["cli_obj"] = la
+        expect(la, FRAMES)
+        hdr_same = bool(np.array_equal(r.scene.skybox.cpu().numpy(),
+                                       skybox.load_hdr(hdr)))
+        log(f"8d render --obj ({n_tri} triangles written, "
+            f"{os.path.getsize(obj)} bytes, 2 MTL materials) --env "
+            f"2048x1024 .hdr ({os.path.getsize(hdr)} bytes): scene has "
+            f"{r.scene.num_triangles} triangles, {len(parsed[4])} materials "
+            f"parsed; OBJ write {obj_write_s:.3f} s, OBJ parse "
+            f"{obj_parse_s:.3f} s (the command parses it twice), HDR read "
+            f"{secs['env_load']:.3f} s, scene {secs['scene']:.3f} s, accel "
+            f"build and upload {secs['renderer'] - secs['scene']:.3f} s, "
+            f"frames {r.stats['seconds']:.3f} s "
+            f"({r.stats['ms_per_frame']:.2f} ms/frame); sky equals the "
+            f"file's {hdr_same}; {out.strip()}; launches {la}")
+        if not (rc == 0 and n_tri >= 100_000 and hdr_same
+                and r.scene.num_triangles == n_tri
+                and tuple(r.scene.skybox.shape) == (1024, 2048, 3)
+                and np.isfinite(r.image).all() and r.image.max() > 0):
+            raise AssertionError("8d: render --obj --env")
+        # The loaded scene at 192x96 x 4 bounces against the brute tracer.
+        rc, _, _, rs, _, la = run(
+            ["render", "--obj", obj, "--env", hdr, "--width", "192",
+             "--height", "96", "--bounces", "4", "--frames", "1", "-o",
+             os.path.join(tmp, "obj_small.png")])
+        expect(la, 1)
+        rb = Renderer(rs.scene, rs.camera,
+                      rs.config.replace(tracer="brute", ray_chunk=1024),
+                      seed=0, device="cuda").step(1)
+        obj_rmse = rmse(rs.image, rb.image)
+        log(f"8d loaded scene at 192x96x4: command line vs the brute "
+            f"tracer RMSE {obj_rmse:.3e}")
+        if not (rc == 0 and obj_rmse < 1e-3):
+            raise AssertionError(f"8d oracle gate: RMSE {obj_rmse}")
+        del r, rs, rb, parsed, verts, norms, text, faces, rest
+
+        # 8e. render --env on .exr skies written here with PIZ (lossless)
+        # and DWAA (lossy: the bound of the codec's own tests).
+        sky = skybox.sun_sky(512, 1024)
+        ref16 = half(sky)
+        for comp, dtype in (("piz", "float"), ("dwaa", "half")):
+            path = os.path.join(tmp, f"sky_{comp}.exr")
+            t0 = time.perf_counter()
+            write_exr(path, sky, dtype=dtype, compression=comp)
+            enc_s = time.perf_counter() - t0
+            rc, out, _, r, secs, la = run(
+                ["render", *bench, "--env", path, *full,
+                 "--frames", "4", "-o", os.path.join(tmp, f"{comp}.png")])
+            by_path[f"cli_env_{comp}"] = la
+            expect(la, 4)
+            got = r.scene.skybox.cpu().numpy()
+            err = float(np.abs(got - (sky if comp == "piz" else ref16)).max())
+            lim = 0.0 if comp == "piz" else \
+                0.02 * max(1.0, float(ref16.max()))
+            log(f"8e render --env {comp} .exr 1024x512 {dtype} "
+                f"({os.path.getsize(path)} bytes): encode {enc_s:.3f} s, "
+                f"decode {secs['env_load']:.3f} s, max |loaded - written| "
+                f"{err:.3e} (limit {lim:.3e}); {out.strip()}; launches {la}")
+            if not (rc == 0 and got.shape == sky.shape and err <= lim
+                    and np.isfinite(r.image).all()):
+                raise AssertionError(f"8e: {comp} environment")
+        del r
+
+        # 8f. render --unity: two spheres by SphereCollider, a built-in
+        # cube and quad, a RayTraceMaster camera.
+        unity = os.path.join(tmp, "scene.unity")
+        with open(unity, "w") as f:
+            f.write(UNITY_SCENE)
+        rc, out, err, r, _, la = run(
+            ["render", "--unity", unity, *full, "--frames", "4", "-o",
+             os.path.join(tmp, "unity.png")])
+        by_path["cli_unity"] = la
+        expect(la, 4)
+        log(f"8f render --unity: {r.scene.num_spheres} spheres, "
+            f"{r.scene.num_triangles} triangles; {err.strip()}; "
+            f"{out.strip()}; launches {la}")
+        if not (rc == 0 and r.scene.num_spheres == 2
+                and r.scene.num_triangles == 14 and err.strip() ==
+                "unity scene settings: {'numBounces': 5, 'numRays': 2, "
+                "'skybox_guid': None}" and np.isfinite(r.image).all()
+                and r.image.max() > 0):
+            raise AssertionError("8f: render --unity")
+        del r
+
+        # 8g. preview: 12 frames in ticks of 4 with the HTTP view.
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        pv = os.path.join(tmp, "preview.png")
+        rc, out, _, r, secs, la = run(
+            ["preview", *bench, *full, "--frames", "12",
+             "--every", "4", "--port", str(port), "-o", pv])
+        by_path["cli_preview"] = la
+        try:
+            got = {}
+            for url in ("/", "/preview.png"):
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{url}",
+                                            timeout=30) as resp:
+                    got[url] = (resp.status, len(resp.read()))
+        finally:
+            r._preview_server.shutdown()
+            r._preview_server.server_close()
+        expect(la, 12, atrous=9)
+        log(f"8g preview 12 frames every 4: {out.strip()}; GET {got}; last "
+            f"tick {r.stats['tick']}; main {secs['main']:.3f} s; "
+            f"launches {la}")
+        if not (rc == 0 and out.strip() == f"wrote {pv} (12 samples)"
+                and got["/preview.png"] == (200, os.path.getsize(pv))
+                and got["/"][0] == 200):
+            raise AssertionError("8g: preview")
+        del r
+
+        # 8h. What is not ported raises, and renders nothing.
+        base = ["render", *bench, "-o",
+                os.path.join(tmp, "never.png")]
+        raised = {}
+        for flags, exc, word in ((["--shard", "rows"], NotImplementedError,
+                                  "multi-GPU"),
+                                 (["--tracer", "cluster"], NotImplementedError,
+                                  "not ported yet"),
+                                 (["--rng", "rbg"], ValueError, "rbg")):
+            try:
+                run(base + flags)
+            except exc as e:
+                raised[" ".join(flags)] = f"{type(e).__name__}: {e}"
+                if word not in str(e):
+                    raise AssertionError(f"{flags}: {e}")
+            else:
+                raise AssertionError(f"{flags} did not raise")
+        rc, _, err, _, _, _ = run(["preview", "--shard", "rows"])
+        log(f"8h raises: {raised}; preview --shard rows -> {rc}, "
+            f"{err.strip()!r}")
+        if rc != 2 or os.path.exists(base[-1]) or err.strip() != \
+                "--shard applies to `render` (preview is single-chip)":
+            raise AssertionError("8h: preview --shard")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
 
 
 def main() -> int:
@@ -1198,6 +1654,9 @@ def main() -> int:
                for k in ("path", "env", "rng")) or la["path"] != 4:
         raise AssertionError(f"profile: stages {prof.stages_ms}, {la}")
     del rp, accum, g, guides
+
+    # 8. The command line at full width.
+    by_path.update(command_line_phase(counted, bits_equal))
 
     for k in kernels:
         use = {"env_planes": "bf16", "trace": "preview",

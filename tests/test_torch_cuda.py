@@ -414,3 +414,30 @@ def test_save_aovs_roundtrip_on_card(dev, tmp_path):
         np.testing.assert_array_equal(load_exr(path, part=name), half(a))
     den = r.denoised_image(iterations=3, guided=True)
     assert den.shape == (48, 64, 3) and np.isfinite(den).all()
+
+
+def test_command_line_render_on_card_matches_cpu(dev, tmp_path, monkeypatch,
+                                                 capsys):
+    """``render`` with the default device (the card) against the same
+    command with ``--device cpu``: the frames' bound, RMSE < 1e-3."""
+    import unityraytracer_tpu_torch.__main__ as cli
+
+    built, make = [], cli._make_renderer
+    monkeypatch.setattr(cli, "_make_renderer",
+                        lambda a: built.append(make(a)) or built[-1])
+    argv = ["render", "--scene", "scene1", "--width", "64", "--height", "48",
+            "--bounces", "3", "--frames", "4", "--seed", "3"]
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    assert cli.main(argv + ["-o", str(tmp_path / "card.png")]) == 0
+    assert _build.LAUNCHES["path"] == 4 and _build.LAUNCHES["env"] == 4
+    assert cli.main(argv + ["--device", "cpu", "-o",
+                            str(tmp_path / "cpu.png")]) == 0
+    card, cpu = built
+    assert card.device.type == "cuda" and card.state.accum.is_cuda
+    assert cpu.device.type == "cpu"
+    assert rmse(card.image, cpu.image) < 1e-3
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2 and all(" samples, " in ln for ln in lines)
+    a = np.frombuffer((tmp_path / "card.png").read_bytes(), np.uint8)
+    assert a[:8].tobytes() == b"\x89PNG\r\n\x1a\n"

@@ -8,16 +8,21 @@ machine with the CUDA toolkit; on CPU tensors every kernel entry point runs
 its plain PyTorch version instead.
 """
 
-from .camera import Camera, camera_from_numpy, camera_rays_soa
+from .camera import Camera, camera_from_numpy, camera_rays, camera_rays_soa
 from .config import RenderConfig
 from .render import (Renderer, RenderState, progressive_step, render_frame,
                      render_sample, render_sample_mega)
-from .scene import (Material, Scene, SceneBuilder, scene_from_numpy,
-                    scene_to_numpy)
+from .scene import (GROUND_MATERIAL, Material, Materials, Scene, SceneBuilder,
+                    Spheres, Triangles, compute_smooth_normals,
+                    scene_from_numpy, scene_to_numpy)
+
+__version__ = "0.1.0"
 
 __all__ = [
-    "Camera", "Material", "RenderConfig", "RenderState", "Renderer", "Scene",
-    "SceneBuilder", "camera_from_numpy", "camera_rays_soa", "progressive_step",
-    "render_frame", "render_sample", "render_sample_mega", "scene_from_numpy",
+    "Camera", "GROUND_MATERIAL", "Material", "Materials", "RenderConfig",
+    "RenderState", "Renderer", "Scene", "SceneBuilder", "Spheres",
+    "Triangles", "camera_from_numpy", "camera_rays", "camera_rays_soa",
+    "compute_smooth_normals", "progressive_step", "render_frame",
+    "render_sample", "render_sample_mega", "scene_from_numpy",
     "scene_to_numpy",
 ]

@@ -4,7 +4,8 @@ The port of the JAX package's ``camera.py``: a cam-to-world rigid transform
 plus the field-of-view tangent, extended with a thin lens. The camera holds
 float32 numpy values (host state, like the scene builders); ray generation
 moves them to the rays' device as float32 scalars, so every product rounds
-as it does in the JAX package.
+as it does in the JAX package. ``orbit``, ``interpolate`` and ``turntable``
+are host numpy and go through ``Camera.create``: they upload nothing.
 
 Conventions match the Unity scenes: left-handed, +y up, camera forward +z.
 """
@@ -82,6 +83,87 @@ def camera_from_numpy(d) -> Camera:
                      ("tan_half_fov", "aspect", "aperture", "focus_dist")})
 
 
+def orbit(center, radius: float, azimuth_deg: float, elevation_deg: float,
+          fov_y_deg: float = 60.0, aspect: float = 1.0, **kw) -> Camera:
+    """Camera on a sphere around ``center``, looking at it.
+
+    The reference gets interactive orbiting for free from the Unity editor
+    camera (it only reacts via reset-on-move, RayTraceMaster.cs:765-768); a
+    standalone framework needs the motion model itself. Azimuth 0 looks down
+    +z -> camera sits at -z; elevation is degrees above the horizon.
+    """
+    c = np.asarray(center, np.float64)
+    az = np.deg2rad(azimuth_deg)
+    el = np.deg2rad(elevation_deg)
+    offset = np.array([np.sin(az) * np.cos(el), np.sin(el),
+                       -np.cos(az) * np.cos(el)]) * float(radius)
+    return Camera.create(position=c + offset, look_at=c,
+                         fov_y_deg=fov_y_deg, aspect=aspect, **kw)
+
+
+def _quat_from_mat(r: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> unit quaternion (w, x, y, z), numerically safe."""
+    t = np.trace(r)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        return np.array([0.25 * s, (r[2, 1] - r[1, 2]) / s,
+                         (r[0, 2] - r[2, 0]) / s, (r[1, 0] - r[0, 1]) / s])
+    i = int(np.argmax(np.diag(r)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(max(1.0 + r[i, i] - r[j, j] - r[k, k], 1e-12)) * 2
+    q = np.empty(4)
+    q[0] = (r[k, j] - r[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (r[j, i] + r[i, j]) / s
+    q[1 + k] = (r[k, i] + r[i, k]) / s
+    return q
+
+
+def _mat_from_quat(q: np.ndarray) -> np.ndarray:
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def interpolate(a: Camera, b: Camera, t: float) -> Camera:
+    """Smooth camera blend: slerp rotation, lerp position/fov/lens params.
+
+    Building block for camera paths / animation (each keyframe pair gives a
+    shot; feed the result to Renderer.set_camera per frame)."""
+    ma = np.asarray(a.cam_to_world, np.float64)
+    mb = np.asarray(b.cam_to_world, np.float64)
+    qa, qb = _quat_from_mat(ma[:3, :3]), _quat_from_mat(mb[:3, :3])
+    if np.dot(qa, qb) < 0:
+        qb = -qb
+    cos_o = float(np.clip(np.dot(qa, qb), -1.0, 1.0))
+    if cos_o > 1.0 - 1e-9:
+        q = qa * (1 - t) + qb * t
+    else:
+        o = np.arccos(cos_o)
+        q = (np.sin((1 - t) * o) * qa + np.sin(t * o) * qb) / np.sin(o)
+    m = np.eye(4)
+    m[:3, :3] = _mat_from_quat(q)
+    m[:3, 3] = (1 - t) * ma[:3, 3] + t * mb[:3, 3]
+
+    def lerp(x, y):
+        return float(np.asarray(x)) * (1 - t) + float(np.asarray(y)) * t
+
+    fov = 2.0 * np.rad2deg(np.arctan(lerp(a.tan_half_fov, b.tan_half_fov)))
+    return Camera.create(cam_to_world=m, fov_y_deg=fov,
+                         aspect=lerp(a.aspect, b.aspect),
+                         aperture=lerp(a.aperture, b.aperture),
+                         focus_dist=lerp(a.focus_dist, b.focus_dist))
+
+
+def turntable(center, radius: float, n_frames: int,
+              elevation_deg: float = 15.0, **kw):
+    """n_frames cameras orbiting ``center`` through a full revolution."""
+    return [orbit(center, radius, 360.0 * i / n_frames, elevation_deg, **kw)
+            for i in range(n_frames)]
+
+
 def camera_rays_soa(camera: Camera, u, v, lens_u=None, lens_v=None):
     """World-space rays for NDC coordinates, component-SoA.
 
@@ -124,3 +206,22 @@ def camera_rays_soa(camera: Camera, u, v, lens_u=None, lens_v=None):
              o[2] + m[2][0] * lu + m[2][1] * lv)
         d = vec.normalize(vec.sub(focal, o))
     return o, d
+
+
+def camera_rays(camera: Camera, uv: torch.Tensor, lens_uv=None):
+    """Row-vector convenience wrapper: uv (..., 2) -> ((..., 3), (..., 3))."""
+    lens_u = lens_uv[..., 0] if lens_uv is not None else None
+    lens_v = lens_uv[..., 1] if lens_uv is not None else None
+    o, d = camera_rays_soa(camera, uv[..., 0], uv[..., 1], lens_u, lens_v)
+    return torch.stack(o, dim=-1), torch.stack(d, dim=-1)
+
+
+def pixel_uv(px, py, jitter_xy, width: int, height: int):
+    """NDC uv for pixel indices with sub-pixel jitter in [0,1).
+
+    Mirrors ``(id.xy + rand2 + _PixelOffset) / wh * 2 - 1``
+    (RayTraceShader.compute:449); py counts up from the bottom row.
+    """
+    u = (px.to(torch.float32) + jitter_xy[..., 0]) / width * 2.0 - 1.0
+    v = (py.to(torch.float32) + jitter_xy[..., 1]) / height * 2.0 - 1.0
+    return torch.stack([u, v], dim=-1)

@@ -10,7 +10,8 @@ plain PyTorch versions.
 ``split_bounce``/``split_frac``, ``spp_chunk`` and ``dispatch_bands`` keep
 the JAX package's meanings. ``ray_bin_bounces`` only changes speed in the
 JAX package (its coherence sort is bit-identical), and is accepted and
-ignored here: the CUDA kernels trace rays in their given order.
+ignored here until the GPU ray sort lands (ROADMAP queue 1, "a GPU ray sort
+for ``ray_bin_bounces``"): the CUDA kernels trace rays in their given order.
 """
 
 from __future__ import annotations
@@ -30,16 +31,20 @@ class RenderConfig:
       tracer: intersection backend:
         - "brute": exhaustive torch ray x primitive tests (the oracle)
         - "pallas": the hand-written CUDA kernels (plain torch on CPU)
-        "bvh" and "cluster" exist in the JAX package and are not ported yet.
+        "bvh" and "cluster" (``ops/traverse.py``) are not ported yet and
+        raise ``NotImplementedError`` (ROADMAP queue 1, "the bvh and cluster
+        tracers").
       ray_chunk: rays per brute-force chunk (bounds peak memory).
       cluster_size: triangles per LBVH leaf cluster.
       wavefront: park dead rays far outside the scene between bounces.
-      max_traversal_steps: used by the JAX package's jnp BVH tracer only.
+      max_traversal_steps: read only by the "bvh"/"cluster" tracers, so it
+        has no effect until they are ported (same ROADMAP item).
       sky_rgbe: one stochastic RGBE sky tap per ray (else bilinear float sky).
       sky_mxu: route the RGBE tap through the env kernel
         (``ops/cuda_env.py``), bit-identical to the plain gather.
       russian_roulette: unbiased RR from bounce 3 (2 <= b < bounces - 1).
-      ray_bin_bounces: accepted for config parity; no effect in the port.
+      ray_bin_bounces: accepted for config parity; no effect until the GPU
+        ray sort is ported (ROADMAP queue 1), and none on results after it.
       rr_group: "ray" (one RR draw per ray) or "step" (one per 8x128 pixels).
       megakernel: with tracer="pallas", run every bounce in one path-kernel
         launch; False runs the bounce loop on the closest-hit kernel.
@@ -86,7 +91,9 @@ class RenderConfig:
 
     def __post_init__(self):
         if self.tracer in ("bvh", "cluster"):
-            raise NotImplementedError(f"tracer {self.tracer!r} is not ported yet")
+            raise NotImplementedError(
+                f"tracer {self.tracer!r} is not ported yet (ROADMAP queue 1: "
+                "the bvh and cluster tracers, ops/traverse.py)")
         if self.tracer not in ("brute", "pallas"):
             raise ValueError(f"unknown tracer {self.tracer!r}")
         if self.rng_impl != "threefry2x32":

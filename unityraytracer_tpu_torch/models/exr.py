@@ -3,16 +3,13 @@
 The port's copy of the JAX package's ``models/exr.py``: scanline and tiled
 files (ONE_LEVEL / MIPMAP / RIPMAP on read, the full-resolution level
 returned; ONE_LEVEL / MIPMAP on write), single- and multi-part, HALF /
-FLOAT / UINT channels, with the compressions this module codes itself:
-NONE, RLE, ZIPS, ZIP and PXR24 (byte-planed deltas + deflate; lossless for
-HALF and UINT, FLOAT rounded to 24 bits by the writer as the spec says).
-Its writers give byte for byte the files the JAX package's writers give for
-the same arrays and arguments.
-
-PIZ, B44 / B44A and DWAA / DWAB live in their own codec modules in the JAX
-package (``piz.py``, ``b44.py``, ``dwa.py``), which the port does not have
-yet (ROADMAP queue 1, item 2): reading or writing them raises
-``NotImplementedError``, never another compression in their place.
+FLOAT / UINT channels, with the whole scanline compression set: NONE, RLE,
+ZIPS, ZIP and PXR24 (byte-planed deltas + deflate; lossless for HALF and
+UINT, FLOAT rounded to 24 bits by the writer as the spec says) coded here,
+PIZ (wavelet + Huffman, ``piz.py``), B44 / B44A (fixed-rate 4x4 half
+blocks, ``b44.py``) and DWAA / DWAB (lossy DCT, ``dwa.py``) in their own
+codec modules. Its writers give byte for byte the files the JAX package's
+writers give for the same arrays and arguments.
 
 Implemented from the OpenEXR file-layout specification. ``save_aovs``
 (``render.PreviewExportMixin``) writes its multi-part AOV file with
@@ -48,22 +45,8 @@ _LINES_PER_CHUNK = {_COMPRESSION_NONE: 1, _COMPRESSION_RLE: 1,
                     _COMPRESSION_PIZ: 32, _COMPRESSION_PXR24: 16,
                     _COMPRESSION_B44: 32, _COMPRESSION_B44A: 32,
                     _COMPRESSION_DWAA: 32, _COMPRESSION_DWAB: 256}
-# The codecs of the JAX package's own modules, not ported yet.
-_UNPORTED = {_COMPRESSION_PIZ: ("PIZ", "piz.py"),
-             _COMPRESSION_B44: ("B44", "b44.py"),
-             _COMPRESSION_B44A: ("B44A", "b44.py"),
-             _COMPRESSION_DWAA: ("DWAA", "dwa.py"),
-             _COMPRESSION_DWAB: ("DWAB", "dwa.py")}
 _PIXEL_DTYPES = {0: np.dtype("<u4"), 1: np.dtype("<f2"), 2: np.dtype("<f4")}
 _PIXEL_TYPES = {np.dtype("<u4"): 0, np.dtype("<f2"): 1, np.dtype("<f4"): 2}
-
-
-def _unported(comp: int) -> NotImplementedError:
-    name, module = _UNPORTED[comp]
-    return NotImplementedError(
-        f"EXR {name} compression needs the codec module models/{module}, "
-        "which the port does not have yet (ROADMAP queue 1, item 2); use "
-        "none, rle, zips, zip or pxr24")
 
 
 def _read_cstr(data: bytes, pos: int) -> Tuple[bytes, int]:
@@ -221,10 +204,19 @@ def _decode_chunk(comp: int, payload: bytes, chans, w: int,
         return _unpredict_deinterleave(zlib.decompress(payload))
     if comp == _COMPRESSION_RLE:
         return _rle_decompress(payload)
+    if comp == _COMPRESSION_PIZ:
+        from .piz import piz_decompress
+        sizes = [dt.itemsize // 2 for _, dt in chans]
+        return piz_decompress(payload, sizes, w, n_lines)
     if comp == _COMPRESSION_PXR24:
         return _pxr24_decompress(payload, chans, w, n_lines)
-    if comp in _UNPORTED:
-        raise _unported(comp)
+    if comp in (_COMPRESSION_B44, _COMPRESSION_B44A):
+        from .b44 import b44_decompress
+        return b44_decompress(payload, chans, w, n_lines,
+                              fixed14=comp == _COMPRESSION_B44)
+    if comp in (_COMPRESSION_DWAA, _COMPRESSION_DWAB):
+        from .dwa import dwa_decompress
+        return dwa_decompress(payload, chans, w, n_lines)
     return payload                                     # NONE
 
 
@@ -379,8 +371,7 @@ def load_exr(path: str, part=0) -> np.ndarray:
     deep-data parts are rejected).
 
     Channels are returned in R, G, B(, A) order when those names exist,
-    otherwise in alphabetical (file) order. PIZ, B44(A) and DWAA/DWAB
-    chunks raise ``NotImplementedError`` (their codecs are not ported).
+    otherwise in alphabetical (file) order.
     """
     with open(path, "rb") as f:
         data = f.read()
@@ -437,10 +428,22 @@ def _encode_chunk(comp: int, block: np.ndarray, order, names, dt) -> bytes:
         packed = zlib.compress(_interleave_predict(raw))
     elif comp == _COMPRESSION_RLE:
         packed = _rle_compress(raw)
+    elif comp == _COMPRESSION_PIZ:
+        from .piz import piz_compress
+        packed = piz_compress(raw, [dt.itemsize // 2] * len(order), w,
+                              n_lines)
     elif comp == _COMPRESSION_PXR24:
         packed = _pxr24_compress(raw, [(names[i], dt) for i in order],
                                  w, n_lines)
-    else:                   # NONE (the writers refuse the unported codecs)
+    elif comp in (_COMPRESSION_B44, _COMPRESSION_B44A):
+        from .b44 import b44_compress
+        packed = b44_compress(raw, [(names[i], dt) for i in order],
+                              w, n_lines, flat3=comp == _COMPRESSION_B44A)
+    elif comp in (_COMPRESSION_DWAA, _COMPRESSION_DWAB):
+        from .dwa import dwa_compress
+        packed = dwa_compress(raw, [(names[i], dt) for i in order],
+                              w, n_lines, dwab=comp == _COMPRESSION_DWAB)
+    else:                                              # NONE
         packed = raw
     return raw if len(packed) >= len(raw) else packed
 
@@ -459,8 +462,6 @@ def _image_layout(img: np.ndarray, compression: str, dtype: str):
     names = ["R", "G", "B", "A"][:C]
     dt = np.dtype("<f2") if dtype == "half" else np.dtype("<f4")
     comp = _COMPRESSIONS[compression]
-    if comp in _UNPORTED:
-        raise _unported(comp)
     return (img.reshape(H, W, C), names,
             sorted(range(C), key=lambda i: names[i]), dt, comp)
 

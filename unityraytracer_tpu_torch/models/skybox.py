@@ -9,9 +9,8 @@ exercise the same sampling path (equirect mapping, compute:424-426).
 Array convention throughout the framework: (H, W, 3) float32 linear radiance,
 row 0 = +y pole (top of the panorama).
 
-Host numpy: the HDR loader and the procedural skies of the JAX package's
-``models/skybox.py``, unchanged. Its EXR loader and RGBE writer wait for the
-codec port.
+Host numpy: the HDR loader and writer, the loader by extension and the
+procedural skies of the JAX package's ``models/skybox.py``, unchanged.
 """
 
 from __future__ import annotations
@@ -100,12 +99,49 @@ def load_hdr(path: str) -> np.ndarray:
     return rgbe_to_float(rgbe)
 
 
+def load_environment(path: str) -> np.ndarray:
+    """Load an equirect environment map by extension (.hdr or .exr) —
+    covering the reference's full skybox set (`Assets/Skyboxes/*`, 16 4K
+    HDR/EXR panoramas)."""
+    lower = path.lower()
+    if lower.endswith(".exr"):
+        from .exr import load_exr
+
+        return load_exr(path)
+    if lower.endswith(".hdr"):
+        return load_hdr(path)
+    raise ValueError(f"unsupported environment format: {path}")
+
+
 def rgbe_to_float(rgbe: np.ndarray) -> np.ndarray:
     """(..., 4) uint8 RGBE -> (..., 3) float32 linear."""
     rgbe = np.asarray(rgbe, np.uint8)
     exp = rgbe[..., 3].astype(np.int32)
     scale = np.where(exp == 0, 0.0, np.ldexp(1.0, exp - 136)).astype(np.float32)
     return rgbe[..., :3].astype(np.float32) * scale[..., None]
+
+
+def float_to_rgbe(img: np.ndarray) -> np.ndarray:
+    """(..., 3) float32 -> (..., 4) uint8 RGBE (for round-trip tests/export)."""
+    img = np.maximum(np.asarray(img, np.float32), 0.0)
+    maxc = img.max(axis=-1)
+    mant, exp = np.frexp(maxc)
+    scale = np.where(maxc > 1e-32, np.ldexp(1.0, -exp) * 256.0 / 1.0, 0.0)
+    rgbe = np.zeros(img.shape[:-1] + (4,), np.uint8)
+    rgbe[..., :3] = np.clip(img * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(maxc > 1e-32, exp + 128, 0).astype(np.uint8)
+    return rgbe
+
+
+def save_hdr(path: str, img: np.ndarray) -> str:
+    """Write (H, W, 3) float32 as a flat (non-RLE) Radiance HDR."""
+    img = np.asarray(img, np.float32)
+    H, W = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {H} +X {W}\n".encode("ascii"))
+        f.write(float_to_rgbe(img).tobytes())
+    return path
 
 
 def gradient_sky(height: int = 256, width: int = 512,

@@ -72,3 +72,35 @@ def intersect_triangles(ro: Vec3, rd: Vec3, v0, v1, v2):
     valid = front & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (t > 0)
     return torch.where(valid, t, INF), u, v
 
+
+def intersect_aabb(ro: Vec3, inv_rd: Vec3, vmin, vmax):
+    """Batched slab test (correct version of IntersectBVHNode, compute:271-291).
+
+    Unlike the reference we cull against positive t (the reference returns hits
+    behind the ray; SURVEY.md defect list says implement the correct test).
+
+    Args:
+      ro, inv_rd: Vec3 of (R,) (inv_rd = safe reciprocal directions).
+      vmin, vmax: (B, 3).
+    Returns:
+      (hit, t_enter): ((R, B) bool, (R, B) float32 entry distance >= 0).
+    """
+    shape = (ro[0].shape[0], vmin.shape[0])
+    t_min = torch.full(shape, -INF, device=vmin.device)
+    t_max = torch.full(shape, INF, device=vmin.device)
+    for a in range(3):
+        t1 = (vmin[:, a][None, :] - ro[a][:, None]) * inv_rd[a][:, None]
+        t2 = (vmax[:, a][None, :] - ro[a][:, None]) * inv_rd[a][:, None]
+        t_min = torch.maximum(t_min, torch.minimum(t1, t2))
+        t_max = torch.minimum(t_max, torch.maximum(t1, t2))
+    hit = (t_max >= t_min) & (t_max > 0)
+    return hit, torch.clamp_min(t_min, 0.0)
+
+
+def safe_inv_dir(rd: Vec3) -> Vec3:
+    """Reciprocal direction guarded against division by zero (the reference
+    adds EPSILON to the raw direction, compute:282-283; we clamp magnitude)."""
+    return tuple(
+        1.0 / torch.where(torch.abs(d) < 1e-12,
+                          torch.where(d < 0, -1e-12, 1e-12), d)
+        for d in rd)

@@ -291,6 +291,29 @@ class SceneBuilder:
         self.dirty = True
         return self
 
+    def add_obj(self, path, transform: Optional[np.ndarray] = None,
+                material: Optional[Material] = None) -> "SceneBuilder":
+        """Register a Wavefront OBJ, honoring its .mtl materials.
+
+        Faces are grouped by usemtl material and each group is registered as
+        its own mesh (the framework is one-material-per-mesh, matching the
+        reference's per-object material, RayTraceMaster.cs:86). ``material``
+        overrides everything when given (and for faces with no usemtl).
+        Returns self; ``last_handle`` is the LAST group's handle.
+        """
+        from .models.obj import load_obj_with_materials
+
+        verts, faces, normals, face_mat, mats = load_obj_with_materials(path)
+        used = np.unique(face_mat) if len(face_mat) else np.array([0])
+        for mid in used:
+            group = faces[face_mat == mid] if len(face_mat) else faces
+            if not len(group):
+                continue
+            mat = material if material is not None else mats[mid]
+            self.add_mesh(verts, group, transform=transform, material=mat,
+                          normals=normals)
+        return self
+
     def remove(self, handle) -> "SceneBuilder":
         """Unregister an object by the handle add_sphere/add_mesh set."""
         kind, idx = handle
