@@ -14,10 +14,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with the pick's edge cases, with the draws at the ray index, at a
    ray_index row and at the block slots of a pixel-order lattice; the
    threefry kernels bit-identical to their plain versions (``urt_uniform``
-   on 2,073,600 and 10,368,000 counters; ``urt_bounce_rows`` at the main
-   path's 1920x1080 x 8 with ``rr_group="step"``, at the quality preset's
-   chunk of spp 5 x 10 bounces and at a band with ``row0 > 0``); the
-   closest hit on 192x96 camera rays plus one scattered bounce of
+   on 2,073,600 and 10,368,000 counters; ``urt_bounce_rows``, which derives
+   its keys from k_bounce on the card, at the main path's 1920x1080 x 8
+   with ``rr_group="step"``, at the quality preset's chunk of spp 5 x 10
+   bounces and at a band with ``row0 > 0``); the camera-ray kernel
+   (``urt_camera_rays``: the frame key's draws, the lattice and the
+   thin-lens camera in one launch) within CAMERA_ULP of its plain version
+   at 1920x1080 in block order, at the band of rows 216-431, at the
+   quality chunk (spp 5) and at 192x96 in pixel order (the oracle's
+   layout); these three kernels timed alone from graph replays of their
+   raw launch, each beside its wrapper call's host time; the closest hit on 192x96 camera rays plus one scattered bounce of
    bench_scene(100_000) (winners agree on >= 99.99% of rays, t to 1e-5
    relative); the path kernel at 192x96 x 4 bounces (all nine output rows
    bit-identical, radiance RMSE < 1e-3);
@@ -27,21 +33,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. the main path: ``Renderer(bench_scene(100_000), RenderConfig(1920, 1080,
    spp=1, bounces=8, tracer="pallas", wavefront=True, rr_group="step"),
    device="cuda")`` with bench.py's camera — a warm-up step, then timed
-   steps whose launch counts must show the path, sky-tap and threefry
-   kernels ran (one sky-tap and four ``urt_uniform`` launches a frame), with
-   a finite image; then one frame through the bounce-loop entry point
-   (megakernel=False), counted apart, which must launch the closest-hit
-   kernel; the main path's layers timed alone (camera rays, uniform rows,
+   steps whose launch counts must show the path, sky-tap, camera-ray and
+   uniform-row kernels ran (one launch of each a frame and no
+   ``urt_uniform``), with a finite image, and the Python threefry hashes of
+   one step (at most 7); then one frame through the bounce-loop entry
+   point (megakernel=False), counted apart, which must launch the
+   closest-hit kernel and ``urt_uniform``; the main path's layers timed
+   alone (camera rays, uniform rows,
    path kernel, sky tap with its compose, accumulation), and its device
    busy share and device launches per frame over a profiled window of
-   three frames, printed beside the count before the fused sky tap;
+   three frames, printed beside the count before the camera-ray kernel;
 5. the oracle gate: the main path at 192x96 x 4 bounces against
    tracer="brute" at the same seed, RMSE < 1e-3;
 6. the other configurations of the megakernel frame, each driven through
    ``Renderer(..., device="cuda")`` with the launch counts set to 0 just
    before it and read just after:
    a. the quality preset: ``fixtures.sample_scene()`` at 1920x1080, spp 25,
-      10 bounces, ``spp_chunk=5`` (5 path and 5 sky-tap launches a frame),
+      10 bounces, ``spp_chunk=5`` (5 path, sky-tap, camera-ray and
+      uniform-row launches a frame, no ``urt_uniform``),
       a warm-up and two timed frames, peak device memory;
    b. the bounce split on the main path's cell (``split_bounce=2,
       split_frac=0.125``, three sky-tap launches a frame): one frame within
@@ -81,8 +90,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the card and every run's launch counts asserted:
    a. ``info --scene bench`` prints the card's name;
    b. ``render --scene bench --width 1920 --height 1080 --frames 32 --aovs
-      ... --denoise`` in this process: 32 path, 32 sky-tap, 128
-      ``urt_uniform``, 32 ``urt_bounce_rows``, 2 closest-hit (the denoise's
+      ... --denoise`` in this process: 32 path, 32 sky-tap, 32 camera-ray,
+      0 ``urt_uniform``, 32 ``urt_bounce_rows``, 2 closest-hit (the denoise's
       guides, the export) and 3 a-trous launches; the accumulator bit-equal
       to a hand-built ``Renderer(...).step(32)``, the PNG's bytes and the
       EXR's parts equal to that renderer's; seconds by stage;
@@ -109,13 +118,17 @@ bounces).
 
 The line before the last is a JSON object with each kernel's launches in
 the run of the path that uses it (the main path for the path, sky-tap
-("env") and threefry kernels; 0 for the closest-hit kernel, whose count
-from the megakernel=False frame stands under
-``launches_megakernel_false``; the bf16 frame for the sky tap's byte-plane
-fetch, "env_planes"), the counts of every path under ``launches_by_path``,
+("env"), camera-ray and uniform-row kernels; the megakernel=False frame
+for ``urt_uniform``, which the main path no longer launches; the preview
+for the closest-hit kernel, whose count from the megakernel=False frame
+stands under ``launches_megakernel_false``; the bf16 frame for the sky
+tap's byte-plane fetch, "env_planes"), the counts of every path under
+``launches_by_path``,
 its error against the plain version (the a-trous kernel also in ulp),
 both times (``shape`` and
-``plain_shape`` say at what size), ``bound_ms``, the least time the card
+``plain_shape`` say at what size; for the threefry and camera-ray kernels
+also ``host_ms``, one wrapper call's host time, and ``call_ms``, the events
+around wrapper calls back to back), ``bound_ms``, the least time the card
 could take for the kernel's work at ``shape`` (the larger of its bytes over
 3.35 TB/s and its operations over the peak rate of their type,
 ``bound_by`` naming which), and ``library_ms``, null: no single PyTorch
@@ -130,6 +143,7 @@ are those of the preview run (7c). The last line is ``{"ok": true,
 result.
 """
 
+import ctypes
 import json
 import os
 import shutil
@@ -163,9 +177,14 @@ SKY_EDGES = [(0.0, 1.0, 0.0), (-0.0, 1.0, -0.0), (0.0, -1.0, -0.0),
              (0.0, 0.3, 0.9), (-0.0, 0.3, 0.9), (0.0, 0.0, 1.0),
              (-0.0, 0.0, 1.0), (0.0, 0.0, -1.0), (-0.0, 0.0, -1.0),
              (1.0, 0.0, 0.0), (-1.0, 0.0, 0.0)]
-# Device launches a frame of the main path before the fused sky tap
-# (PERF.md, the profiled window of the previous slice's runs).
-LAUNCHES_BEFORE = 161.3
+# Device launches a frame of the main path before the camera-ray kernel
+# (PERF.md section 5: 361 device events in a profiled window of three
+# frames).
+LAUNCHES_BEFORE = 120.3
+# The camera-ray kernel's rows against its plain version's, in ulp (0: bit
+# for bit; the divisions are IEEE on both sides, and the sqrt, cos and sin
+# are the CUDA math library's, as in torch's CUDA kernels).
+CAMERA_ULP = 0
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): memory, and
 # float32 outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz). The
@@ -220,6 +239,47 @@ def cuda_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(launch, calls=20, replays=5):
+    """Mean device milliseconds of one call of ``launch``, a raw kernel
+    launch with its arguments already built, from the replays of a CUDA
+    graph of ``calls`` launches: nothing of the host's work lies between
+    the kernels the events span. One call runs first, outside the capture
+    (it asks the grid's occupancy once)."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def host_ms(fn, calls=20):
+    """Mean host milliseconds of one call of ``fn`` as a caller issues it
+    (no synchronize between the calls, one after them, outside the clock)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
 
 
 def scene_bytes(ks) -> int:
@@ -454,9 +514,8 @@ def command_line_phase(counted, bits_equal) -> dict:
         return rc, out.getvalue(), err.getvalue(), r, secs, la
 
     def expect(la, frames, trace=0, atrous=0):
-        want = dict(path=frames, env=frames, uniform=4 * frames,
-                    bounce_rows=frames, trace=trace, atrous=atrous,
-                    env_planes=0)
+        want = dict(path=frames, env=frames, uniform=0, bounce_rows=frames,
+                    camera=frames, trace=trace, atrous=atrous, env_planes=0)
         if la != want:
             raise AssertionError(f"launches {la}, expected {want}")
 
@@ -765,8 +824,11 @@ def main() -> int:
                                                          trace_hits)
     from unityraytracer_tpu_torch.render import (RenderState, _camera_rays,
                                                  _env_tap, _frame_inputs,
-                                                 _sky_keys, bounce_rows,
+                                                 _sky_keys, bounce_args,
+                                                 bounce_rows,
                                                  bounce_rows_plain,
+                                                 camera_args,
+                                                 camera_rays_plain,
                                                  progressive_step,
                                                  render_frame, render_sample,
                                                  split_capacity)
@@ -914,14 +976,31 @@ def main() -> int:
                                  f"plain version on {n} counters")
         log(f"uniform: {n} counters bit-identical")
     del got, want
+    # Each kernel's time comes from graph replays of its raw launch with the
+    # arguments built (kernel_ms); host_ms is one wrapper call's host time,
+    # and call_ms the CUDA events around 20 wrapper calls back to back,
+    # which time the host wherever a call's host work outlasts its kernel.
+    lib = _build.lib()
     ukey = rng.key(51)
+    uk0, uk1 = (int(w) for w in ukey)
+    uout = torch.empty(n_env, dtype=torch.float32, device=dev)
+
+    def uniform_launch():
+        _build.check(lib.urt_uniform(uk0, uk1, uout.data_ptr(), n_env,
+                                     _build.stream_ptr(dev)), "uniform")
+
+    def uniform_call():
+        return rng.uniform(ukey, (n_env,), device=dev)
+
     kernels["uniform"] = dict(
         route="cuda", source="unityraytracer_tpu_torch/csrc/uniform_kernel.cu",
         replaces="unityraytracer_tpu/render.py:465",
         max_abs_err=0.0, shape=[n_env], plain_shape=[n_env],
-        ms=cuda_ms(lambda: rng.uniform(ukey, (n_env,), device=dev), 20, 3),
+        ms=kernel_ms(uniform_launch), host_ms=host_ms(uniform_call),
+        call_ms=cuda_ms(uniform_call, 20, 3),
         plain_ms=cuda_ms(lambda: rng.uniform_plain(ukey, (n_env,),
                                                    device=dev), 5, 1))
+    del uout
     kernels["uniform"]["bound_ms"], kernels["uniform"]["bound_by"] = bound(
         n_env * 4, n_env * draw_ops, PEAK_I32)
     log("uniform:", json.dumps(kernels["uniform"]))
@@ -958,12 +1037,29 @@ def main() -> int:
     kb = rng.split(rng.key(53), 3)[2]
     n_m = cfg_m.num_rays
     draws = n_m * (3 * cfg_m.bounces + (cfg_m.bounces - 3))
+
+    def rows_launcher(cfg_r, kb=kb):
+        args = bounce_args(kb, cfg_r, cfg_r.height, 0, True)
+        out = torch.empty((cfg_r.bounces, 5, args.n), dtype=torch.float32,
+                          device=dev)
+
+        def launch():
+            _build.check(lib.urt_bounce_rows(ctypes.byref(args),
+                                             out.data_ptr(),
+                                             _build.stream_ptr(dev)),
+                         "bounce_rows")
+        return launch
+
+    def rows_call():
+        return bounce_rows(kb, cfg_m, H_m, 0, True, dev)
+
     kernels["bounce_rows"] = dict(
         route="cuda", source="unityraytracer_tpu_torch/csrc/uniform_kernel.cu",
         replaces="unityraytracer_tpu/render.py:495",
         max_abs_err=max_abs, max_ulp_by_row=max_ulp,
         shape=[cfg_m.bounces, 5, n_m], plain_shape=[cfg_m.bounces, 5, n_m],
-        ms=cuda_ms(lambda: bounce_rows(kb, cfg_m, H_m, 0, True, dev), 20, 3),
+        ms=kernel_ms(rows_launcher(cfg_m)), host_ms=host_ms(rows_call),
+        call_ms=cuda_ms(rows_call, 20, 3),
         plain_ms=cuda_ms(lambda: bounce_rows_plain(kb, cfg_m, H_m, 0, True,
                                                    dev), 3, 1),
         draw_ops=draw_ops)
@@ -973,6 +1069,68 @@ def main() -> int:
     kernels["bounce_rows"]["bound_ms"], kernels["bounce_rows"]["bound_by"] = \
         bound(cfg_m.bounces * 5 * n_m * 4, draws * draw_ops, PEAK_I32)
     log("bounce_rows:", json.dumps(kernels["bounce_rows"]))
+
+    # 3a''. The camera-ray kernel against its plain version (the int64
+    # threefry draws and the torch camera ops), within CAMERA_ULP: at the
+    # main path's 1080p in block order, a band of dispatch_bands=5, the
+    # quality preset's chunk of spp 5, and the oracle's 192x96 in pixel
+    # order (the bounce loop's draws at block slots).
+    cam_q = fixtures.sample_scene_camera(16 / 9)
+    cam_cases = {   # (camera, config, band rows, row0, blocked)
+        "main 1920x1080 block order": (cam_main, cfg_m, H_m, 0, True),
+        "band rows 216-431 of dispatch_bands=5": (cam_main, cfg_m, 216, 216,
+                                                  True),
+        "quality chunk spp 5": (cam_q, qsub, H_m, 0, True),
+        "oracle 192x96 pixel order": (cam_small, small_cfg(tracer="brute"),
+                                      96, 0, False),
+    }
+    cam_err, cam_ulp = 0.0, 0
+    for tag, (cam, cfg_c, h_c, row0_c, blk) in cam_cases.items():
+        ckey = rng.fold_in(rng.key(54), row0_c + cfg_c.spp)
+        W_c, spp_c = cfg_c.width, cfg_c.spp
+        ro_k, rd_k, _ = _camera_rays(cam, ckey, cfg_c, h_c, W_c, spp_c,
+                                     row0_c, blk, dev)
+        ro_p, rd_p = camera_rays_plain(cam, ckey, cfg_c, h_c, W_c, spp_c,
+                                       row0_c, blk, dev)
+        torch.cuda.synchronize()
+        got, want = torch.stack(ro_k + rd_k), torch.stack(ro_p + rd_p)
+        same = bits_equal(got, want)
+        ulp = ulp_distance(got, want)
+        err = float((got - want).abs().max())
+        cam_err, cam_ulp = max(cam_err, err), max(cam_ulp, ulp)
+        log(f"camera rays [{tag}]: {tuple(got.shape)}, bit-identical {same}, "
+            f"max {ulp} ulp, max abs err {err:.3e}, finite "
+            f"{bool(torch.isfinite(got).all())}")
+        if not (ulp <= CAMERA_ULP and torch.isfinite(got).all()):
+            raise AssertionError(f"camera-ray kernel vs plain ({tag}): {ulp} "
+                                 "ulp")
+    del got, want, ro_k, rd_k, ro_p, rd_p
+    ckey = rng.key(55)
+    cargs = camera_args(cam_main, ckey, cfg_m, H_m, cfg_m.width, 1, 0, True)
+    cout = torch.empty((6, n_m), dtype=torch.float32, device=dev)
+
+    def camera_launch():
+        _build.check(lib.urt_camera_rays(ctypes.byref(cargs), cout.data_ptr(),
+                                         _build.stream_ptr(dev)), "camera")
+
+    def camera_call():
+        return _camera_rays(cam_main, ckey, cfg_m, H_m, cfg_m.width, 1, 0,
+                            True, dev)
+
+    kernels["camera_rays"] = dict(
+        route="cuda", source="unityraytracer_tpu_torch/csrc/camera_kernel.cu",
+        replaces="unityraytracer_tpu/render.py:460",
+        max_abs_err=cam_err, max_ulp=cam_ulp, shape=[6, n_m],
+        plain_shape=[6, n_m], ms=kernel_ms(camera_launch),
+        host_ms=host_ms(camera_call), call_ms=cuda_ms(camera_call, 20, 3),
+        plain_ms=cuda_ms(lambda: camera_rays_plain(
+            cam_main, ckey, cfg_m, H_m, cfg_m.width, 1, 0, True, dev), 5, 1))
+    # ro and rd written once; four threefry draws a ray (the prologue's six
+    # hashes a block and the ~80 float operations a ray are left out).
+    kernels["camera_rays"]["bound_ms"], kernels["camera_rays"]["bound_by"] = \
+        bound(n_m * 24, n_m * 4 * draw_ops, PEAK_I32)
+    log("camera_rays:", json.dumps(kernels["camera_rays"]))
+    del cout
 
     # 3b. Closest-hit kernel vs plain.
     def camera_rays(cam, width, height, seed):
@@ -1174,17 +1332,32 @@ def main() -> int:
     img = r.image
     if not (np.isfinite(img).all() and img.max() > 0):
         raise AssertionError("main path produced a non-finite or black image")
-    for k in ("path", "env", "uniform", "bounce_rows"):
+    for k in ("path", "env", "camera", "bounce_rows"):
         if launches[k] < 1:
             raise AssertionError(f"kernel {k!r} never launched on the main "
                                  f"path: {launches}")
-    # One sky-tap launch a frame, and only the camera's four draws.
+    # One launch a frame of the path, sky-tap, camera-ray and uniform-row
+    # kernels; the camera's draws are the camera-ray kernel's, so no
+    # urt_uniform.
     nf = len(frame_ms)
-    if launches["env"] != nf or launches["uniform"] != 4 * nf \
-            or launches["env_planes"] != 0:
-        raise AssertionError(f"main path: expected 1 sky-tap and 4 uniform "
-                             f"launches a frame, got {launches} in {nf}")
+    if any(launches[k] != nf for k in ("path", "env", "camera",
+                                       "bounce_rows")) \
+            or launches["uniform"] != 0 or launches["env_planes"] != 0:
+        raise AssertionError(f"main path: expected 1 path, sky-tap, camera "
+                             f"and uniform-row launch and no urt_uniform a "
+                             f"frame, got {launches} in {nf}")
     by_path = {"main": launches}
+    # The Python threefry hashes of one step(1): split (2), the frame key,
+    # k_bounce and the sky tap's three keys; the kernels derive the rest.
+    hashes, hash_ = [], rng.threefry2x32
+    rng.threefry2x32 = lambda *a: hashes.append(a) or hash_(*a)
+    try:
+        r.step(1)
+    finally:
+        rng.threefry2x32 = hash_
+    log(f"host threefry hashes in one main-path step(1): {len(hashes)}")
+    if len(hashes) > 7:
+        raise AssertionError(f"step(1) hashed {len(hashes)} keys on the host")
     med = float(np.median(frame_ms))
     mrays = cfg_m.num_rays * cfg_m.bounces / med / 1e3
     log(f"main path 1920x1080x8, 100k tris: {med:.2f} ms/frame median of "
@@ -1199,9 +1372,13 @@ def main() -> int:
     loop = Renderer(scene_np, cam_main, cfg_m.replace(megakernel=False),
                     accel=r.accel, seed=0, device="cuda").step(1)
     loop_launches = dict(_build.LAUNCHES)
-    if not (np.isfinite(loop.image).all() and loop_launches["trace"] >= 1):
+    if not (np.isfinite(loop.image).all() and loop_launches["trace"] >= 1
+            and loop_launches["uniform"] >= 1
+            and loop_launches["camera"] == 1):
         raise AssertionError(f"megakernel=False frame: non-finite image or "
-                             f"no closest-hit launch: {loop_launches}")
+                             f"no closest-hit, urt_uniform or camera-ray "
+                             f"launch: {loop_launches}")
+    by_path["loop"] = loop_launches
     kernels["trace"]["launches_megakernel_false"] = loop_launches["trace"]
     log(f"megakernel=False frame {loop.stats['ms_per_frame']:.2f} ms; "
         f"launches {loop_launches}")
@@ -1219,8 +1396,7 @@ def main() -> int:
 
     layers = {
         "camera_rays": cuda_ms(lambda: _camera_rays(
-            cam_main, fkey, cfg_m, H_m, cfg_m.width, 1, 0, True,
-            lambda a: a, dev), 10, 2),
+            cam_main, fkey, cfg_m, H_m, cfg_m.width, 1, 0, True, dev), 10, 2),
         "uniform_rows": cuda_ms(lambda: bounce_rows(
             k_bounce, cfg_m, H_m, 0, True, dev), 10, 2),
         "rays_and_rows": cuda_ms(
@@ -1255,8 +1431,8 @@ def main() -> int:
         f"{busy_us / 1e3:.3f} ms over {len(spans)} device events "
         f"({len(spans) / 3:.1f} a frame), busy share "
         f"{busy_us / 1e3 / wall_ms:.4f}")
-    log(f"device launches a frame: before {LAUNCHES_BEFORE} (PERF.md), now "
-        f"{len(spans) / 3:.1f}")
+    log(f"device launches a frame: before the camera-ray kernel "
+        f"{LAUNCHES_BEFORE} (PERF.md), now {len(spans) / 3:.1f}")
 
     # 5. Oracle gate at 192x96 x 4 bounces, and the alive fraction at 8.
     key = rng.key(42)
@@ -1299,11 +1475,12 @@ def main() -> int:
     if not (np.isfinite(img).all() and img.max() > 0):
         raise AssertionError("quality preset: non-finite or black image")
     for la in q_launch:
-        if la["path"] != n_chunks or la["env"] != n_chunks \
-                or la["uniform"] != 4 * n_chunks:
-            raise AssertionError(f"quality preset: expected {n_chunks} path "
-                                 f"and sky-tap launches and {4 * n_chunks} "
-                                 f"uniform launches a frame, got {la}")
+        if any(la[k] != n_chunks for k in ("path", "env", "camera",
+                                           "bounce_rows")) \
+                or la["uniform"] != 0:
+            raise AssertionError(f"quality preset: expected {n_chunks} path, "
+                                 f"sky-tap, camera and uniform-row launches "
+                                 f"and no urt_uniform a frame, got {la}")
     by_path["quality"] = q_launch[-1]
     q_rays = qcfg.num_rays * qcfg.bounces
     log(f"quality preset 1920x1080 spp 25 x 10 bounces (spp_chunk 5) on "
@@ -1332,9 +1509,11 @@ def main() -> int:
     n_q = qsub.num_rays
     q_draws = n_q * (3 * qsub.bounces + (qsub.bounces - 3))
     qb, qby = bound(qsub.bounces * 5 * n_q * 4, q_draws * draw_ops, PEAK_I32)
+    q_kernel_ms = kernel_ms(rows_launcher(qsub))
     kernels["bounce_rows"]["quality_chunk"] = dict(
-        shape=[qsub.bounces, 5, n_q], ms=q_layers["uniform_rows"],
-        bound_ms=qb, bound_by=qby, share=qb / q_layers["uniform_rows"])
+        shape=[qsub.bounces, 5, n_q], ms=q_kernel_ms,
+        call_ms=q_layers["uniform_rows"], bound_ms=qb, bound_by=qby,
+        share=qb / q_kernel_ms)
     log("bounce_rows at the quality chunk:",
         json.dumps(kernels["bounce_rows"]["quality_chunk"]))
     del rq, ro, rd, uni, rad, se, sd
@@ -1405,10 +1584,10 @@ def main() -> int:
     # Three sky taps a split frame: the compact pass's, the remainder
     # pass's and the full-width one of the first segment's misses.
     if split_launch["path"] != 45 or split_launch["env"] != 45 \
-            or split_launch["uniform"] != 60:
-        raise AssertionError(f"split frames: expected 3 path, 3 sky-tap "
-                             f"and 4 uniform launches each, got "
-                             f"{split_launch} in 15")
+            or split_launch["camera"] != 15 or split_launch["uniform"] != 0:
+        raise AssertionError(f"split frames: expected 3 path, 3 sky-tap, "
+                             f"1 camera and no urt_uniform launches each, "
+                             f"got {split_launch} in 15")
     log("split A/B, 15 step(1) frames each in turns: " + "; ".join(
         f"{k} median {np.median(v):.2f} ms (min {min(v):.2f}, max "
         f"{max(v):.2f}), {cfg_m.num_rays * cfg_m.bounces / np.median(v) / 1e3:.2f}"
@@ -1433,7 +1612,8 @@ def main() -> int:
     log(f"bands: 5 bands of {[m.shape[0] for m in manual]} rows, "
         f"{rb.stats['ms_per_frame']:.2f} ms; bit-equal to the manual "
         f"composition {same}; launches {la}")
-    if not (same and la["path"] == 5 and la["env"] == 5):
+    if not (same and la["path"] == 5 and la["env"] == 5
+            and la["camera"] == 5 and la["uniform"] == 0):
         raise AssertionError("banded step differs from its manual "
                              f"composition or launched {la}")
     band_ms = [rb.step(1).stats["ms_per_frame"] for _ in range(5)]
@@ -1651,7 +1831,7 @@ def main() -> int:
     log("7e profile(3):\n" + prof.report())
     log(f"7e launches {la}")
     if not all(prof.stages_ms.get(k, 0.0) > 0.0
-               for k in ("path", "env", "rng")) or la["path"] != 4:
+               for k in ("path", "env", "rng", "camera")) or la["path"] != 4:
         raise AssertionError(f"profile: stages {prof.stages_ms}, {la}")
     del rp, accum, g, guides
 
@@ -1660,11 +1840,12 @@ def main() -> int:
 
     for k in kernels:
         use = {"env_planes": "bf16", "trace": "preview",
-               "atrous": "preview"}.get(k, "main")
-        kernels[k]["launches"] = by_path[use][k]
-        kernels[k]["launches_by_path"] = {p_: v[k] for p_, v in
+               "atrous": "preview", "uniform": "loop"}.get(k, "main")
+        count = {"camera_rays": "camera"}.get(k, k)
+        kernels[k]["launches"] = by_path[use][count]
+        kernels[k]["launches_by_path"] = {p_: v[count] for p_, v in
                                           by_path.items()}
-    for k in ("env_planes", "trace", "atrous"):
+    for k in kernels:
         if kernels[k]["launches"] < 1:
             raise AssertionError(f"kernel {k!r} never launched on its path")
 
@@ -1672,8 +1853,8 @@ def main() -> int:
     log(card)
     keys = ("route", "source", "replaces", "launches",
             "launches_megakernel_false", "launches_by_path", "max_abs_err",
-            "max_ulp", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "shape", "plain_shape")
+            "max_ulp", "ms", "host_ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape", "plain_shape")
     for v in kernels.values():
         v["library_ms"] = None     # no single PyTorch call computes these
     log(json.dumps({"kernels": [

@@ -37,8 +37,8 @@ def test_library_name_tracks_sources():
     assert re.fullmatch(r"liburt_kernels_[0-9a-f]{16}\.so", p.name)
     assert p == _build.library_path()
     assert {s.name for s in _build.CSRC.glob("*.cu")} == {
-        "denoise_kernel.cu", "env_kernel.cu", "path_kernel.cu",
-        "trace_kernel.cu", "uniform_kernel.cu"}
+        "camera_kernel.cu", "denoise_kernel.cu", "env_kernel.cu",
+        "path_kernel.cu", "trace_kernel.cu", "uniform_kernel.cu"}
 
 
 def test_cpu_tensors_never_touch_the_kernels():

@@ -32,7 +32,8 @@ import numpy as np
 import pytest
 import torch
 
-from unityraytracer_tpu_torch import RenderConfig, Renderer, _build, rng
+from unityraytracer_tpu_torch import RenderConfig, Renderer, _build, render, rng
+from unityraytracer_tpu_torch.camera import Camera
 from unityraytracer_tpu_torch.models import fixtures
 from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
 from unityraytracer_tpu_torch.ops import cuda_env
@@ -41,8 +42,9 @@ from unityraytracer_tpu_torch.ops.cuda_path import path_trace, path_trace_plain
 from unityraytracer_tpu_torch.ops.cuda_trace import (KernelScene,
                                                      closest_hit_plain,
                                                      trace_hits)
-from unityraytracer_tpu_torch.render import (aov_buffers, bounce_rows,
-                                             bounce_rows_plain, mega_inputs,
+from unityraytracer_tpu_torch.render import (_camera_rays, aov_buffers,
+                                             bounce_rows, bounce_rows_plain,
+                                             camera_rays_plain, mega_inputs,
                                              pixel_center_rays, render_aovs,
                                              render_frame, split_capacity)
 from unityraytracer_tpu_torch.utils.denoise import (ATROUS_ULP,
@@ -297,6 +299,7 @@ ROWS = {
     "band_step": (256, 64, 16, 40, 1, 6, "step", True),
     "spp5_ten_bounces": (64, 32, None, 0, 5, 10, "step", True),
     "rr_off": (32, 16, None, 0, 1, 4, "ray", False),
+    "max_bounces": (64, 16, None, 0, 1, 32, "step", True),
 }
 
 
@@ -314,6 +317,84 @@ def test_bounce_rows_kernel_bit_identical(dev, case):
     want = bounce_rows_plain(k_bounce, cfg, h, row0, blocked, dev)
     assert got.shape == want.shape == (nb, 5, spp * h * W)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# (width, height, rows, row0, spp, tracer, aperture): block order, the lens
+# on and off; pixel order at a size that tiles (the bounce loop); a size
+# that does not tile; a band with row0 > 0; spp 3; the main path's 1080p.
+CAMERA = {
+    "blocked_lens": (64, 48, None, 0, 1, "pallas", 0.15),
+    "blocked_pinhole": (64, 48, None, 0, 1, "pallas", 0.0),
+    "pixel_order": (64, 48, None, 0, 2, "brute", 0.15),
+    "non_tiling": (60, 44, None, 0, 1, "pallas", 0.15),
+    "band": (256, 64, 16, 40, 1, "pallas", 0.15),
+    "spp3": (64, 32, None, 0, 3, "pallas", 0.15),
+    "main_1080p": (1920, 1080, None, 0, 1, "pallas", 0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(CAMERA))
+def test_camera_rays_kernel_bit_identical(dev, case):
+    W, H, rows, row0, spp, tracer, ap = CAMERA[case]
+    cfg = RenderConfig(width=W, height=H, spp=spp, tracer=tracer)
+    h = H if rows is None else rows
+    blocked = tracer == "pallas" and h % 8 == 0 and W % 16 == 0
+    cam = Camera.create(position=(0.3, 1.5, -6.0), look_at=(0.0, 1.0, 0.0),
+                        fov_y_deg=55.0, aspect=W / H, aperture=ap,
+                        focus_dist=5.5)
+    key = rng.key(40 + list(CAMERA).index(case))
+    before = _build.LAUNCHES["camera"]
+    ro, rd, k_bounce = _camera_rays(cam, key, cfg, h, W, spp, row0, blocked,
+                                    dev)
+    assert _build.LAUNCHES["camera"] == before + 1
+    po, pd = camera_rays_plain(cam, key, cfg, h, W, spp, row0, blocked, dev)
+    np.testing.assert_array_equal(k_bounce, rng.split(key, 3)[2])
+    for a, b in zip(ro + rd, po + pd):
+        assert a.shape == b.shape == (spp * h * W,) and a.is_contiguous()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _plain_camera_route(camera, key, cfg, h, W, spp, row0, blocked, device):
+    ro, rd = camera_rays_plain(camera, key, cfg, h, W, spp, row0, blocked,
+                               device)
+    return ro, rd, rng.fold_in(key, 2)
+
+
+@pytest.mark.parametrize("kw,per_frame", [
+    ({}, 1), ({"dispatch_bands": 3}, 3), ({"spp": 5, "spp_chunk": 2}, 3)],
+    ids=["main", "bands", "chunks"])
+def test_frame_equals_plain_camera_route(dev, monkeypatch, kw, per_frame):
+    cfg = RenderConfig(width=64, height=48, bounces=4, tracer="pallas",
+                       rr_group="step", **kw)
+    cam = fixtures.scene1_camera(64 / 48)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    a = Renderer(fixtures.scene1(), cam, cfg, seed=4, device="cuda").step(2)
+    la = dict(_build.LAUNCHES)
+    calls = 2 * per_frame
+    assert la["camera"] == calls and la["bounce_rows"] == calls
+    assert la["path"] == calls and la["env"] == calls and la["uniform"] == 0
+    monkeypatch.setattr(render, "_camera_rays", _plain_camera_route)
+    b = Renderer(fixtures.scene1(), cam, cfg, seed=4, device="cuda").step(2)
+    assert _build.LAUNCHES["camera"] == calls
+    assert torch.isfinite(a.state.accum).all() and a.state.accum.max() > 0
+    assert torch.equal(a.state.accum.view(torch.int32),
+                       b.state.accum.view(torch.int32))
+
+
+def test_step_hashes_seven_keys_on_the_host(dev, monkeypatch):
+    # A main-path step(1): split (2 hashes), the frame key (1), k_bounce
+    # (1) and the sky tap's keys (3); the camera and uniform-row kernels
+    # derive the rest on the card.
+    cfg = RenderConfig(width=64, height=48, bounces=8, tracer="pallas",
+                       rr_group="step")
+    r = Renderer(fixtures.bench_scene(2000), fixtures.bench_camera(64 / 48),
+                 cfg, seed=0, device="cuda").step(1)
+    calls, hash_ = [], rng.threefry2x32
+    monkeypatch.setattr(rng, "threefry2x32",
+                        lambda *a: calls.append(a) or hash_(*a))
+    r.step(1)
+    assert len(calls) == 7, len(calls)
 
 
 def test_trace_counts_match_the_twin(dev):

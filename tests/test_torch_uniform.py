@@ -1,5 +1,6 @@
 """The path kernel's uniform rows: the threefry kernel's per-ray counter
-mapping, its by-value key struct, and the rows against the JAX package's
+mapping, its by-value struct (k_bounce's words, from which the kernel's
+prologue derives the keys), and the rows against the JAX package's
 ``render_sample_mega`` draws.
 
 Bars: the per-ray twin of the kernel (``torch_twins.bounce_rows_twin``) is
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_twins import bounce_rows_twin
+from torch_twins import bounce_prologue_keys, bounce_rows_twin
 from unityraytracer_tpu import RenderConfig as JConfig
 from unityraytracer_tpu.render import _draw_fn as jax_draw_fn
 from unityraytracer_tpu.render import _rr_uniform as jax_rr_uniform
@@ -136,11 +137,20 @@ def test_rows_match_jax(case):
         assert ulps.max() <= bound, (r, ulps.max())
 
 
-def test_bounce_args_keys_are_fold_in_chain():
+def test_bounce_args_keys_are_fold_in_chain(monkeypatch):
+    # bounce_args hands the kernel k_bounce's words and hashes nothing; the
+    # kernel's prologue (its twin here) derives the fold_in chain from them.
     cfg = _cfg("band_step", bounces=7)
     k_bounce = _k_bounce(rng.key(5))
+    calls, hash_ = [], rng.threefry2x32
+    monkeypatch.setattr(rng, "threefry2x32",
+                        lambda *a: calls.append(a) or hash_(*a))
     args = bounce_args(k_bounce, cfg, 16, 8, True)
-    keys = np.array(args.keys, np.uint32).reshape(_build.MAX_BOUNCES, 4, 2)
+    assert calls == []
+    monkeypatch.undo()
+    assert (args.k0, args.k1) == tuple(int(w) for w in k_bounce)
+    keys = bounce_prologue_keys(np.array([args.k0, args.k1], np.uint32),
+                                args.nb)
     jk = jax.random.wrap_key_data(jnp.asarray(k_bounce, jnp.uint32))
     for b in range(cfg.bounces):
         kb = rng.fold_in(k_bounce, b)
@@ -149,7 +159,6 @@ def test_bounce_args_keys_are_fold_in_chain():
             np.testing.assert_array_equal(keys[b, row], np.asarray(
                 jax.random.key_data(jax.random.fold_in(
                     jax.random.fold_in(jk, b), row))))
-    assert (keys[cfg.bounces:] == 0).all()
     assert (args.n, args.nb, args.h, args.W, args.row0) == (512, 7, 16, 32, 8)
     assert (args.Hg, args.Wg, args.blocked, args.rr_step) == (5, 1, 1, 1)
     assert (args.rr_lo, args.rr_hi) == (2, 6)
@@ -167,10 +176,13 @@ def test_bounce_args_mirror_the_header():
                         re.M)
     got = [(name, ty) for name, ty in _build.BounceArgs._fields_]
     assert [name for _, name, _ in fields] == [name for name, _ in got]
-    assert fields[0][0] == "unsigned int" and fields[0][2]
-    assert got[0][1]._length_ == 32 * 4 * 2
-    assert all(ty == "int" and not arr for ty, _, arr in fields[1:])
-    assert all(ty.__name__ == "c_int" for _, ty in got[1:])
+    assert [name for _, name, _ in fields[:2]] == ["k0", "k1"]
+    assert all(ty == "unsigned int" and not arr for ty, _, arr in fields[:2])
+    assert all(ty.__name__ == "c_uint" for _, ty in got[:2])
+    assert all(ty == "int" and not arr for ty, _, arr in fields[2:])
+    assert all(ty.__name__ == "c_int" for _, ty in got[2:])
+    assert re.search(r"#define URT_MAX_BOUNCES (\d+)", src).group(1) == str(
+        _build.MAX_BOUNCES)
 
 
 def test_cpu_draws_take_the_plain_versions():

@@ -1,8 +1,13 @@
-"""Per-ray twins of two CUDA kernels, written from one ray as each kernel
+"""Per-ray twins of three CUDA kernels, written from one ray as each kernel
 computes it, for tests on the CPU and on the card (no JAX here):
 
 * ``bounce_rows_twin``: ``csrc/uniform_kernel.cu:urt_bounce_rows_kernel``,
-  the counters of ray i and the five rows it writes per bounce;
+  the keys of its prologue (``bounce_prologue_keys``), the counters of ray
+  i and the five rows it writes per bounce;
+* ``camera_rays_twin``: ``csrc/camera_kernel.cu:urt_camera_rays_kernel``
+  from the ``CameraArgs`` it is launched with: the keys of its prologue
+  (``camera_prologue_keys``), ray i's lattice and counter, its four draws
+  and the camera, in the kernel's order of operations;
 * ``closest_hit_twin``: ``csrc/closest_hit.cuh:urt_closest_hit`` on the
   tables of ``ops/cuda_trace.kernel_tables``, in float32 numpy, with the
   kernel's box and triangle test counts.
@@ -56,12 +61,79 @@ def uniform_at(key, counters):
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
+def _hash_key(key, data):
+    """threefry(key, (0, data)): one prologue thread's hash."""
+    k = np.asarray(key, np.uint32)
+    return np.array(rng.threefry2x32(int(k[0]), int(k[1]), 0, data),
+                    np.uint32)
+
+
+def bounce_prologue_keys(k_bounce, nb):
+    """(nb, 4, 2) keys of the uniform-row kernel's prologue: level one hashes
+    kb = (k_bounce, (0, b)), level two (kb, (0, row))."""
+    kb = [_hash_key(k_bounce, b) for b in range(nb)]
+    return np.array([[_hash_key(kb[b], row) for row in range(4)]
+                     for b in range(nb)], np.uint32).reshape(nb, 4, 2)
+
+
+def camera_prologue_keys(key):
+    """(4, 2) keys of the camera-ray kernel's prologue, jitter x, jitter y,
+    lens 1, lens 2: level one hashes parent j = (key, (0, j)) for j = 0, 1,
+    level two (parent j, (0, r)) for r = 0, 1."""
+    parent = [_hash_key(key, j) for j in range(2)]
+    return np.array([_hash_key(parent[j], r) for j in range(2)
+                     for r in range(2)], np.uint32)
+
+
+def camera_rays_twin(args):
+    """((3, N), (3, N)) ro and rd the camera-ray kernel writes for its
+    ``CameraArgs``, ray by ray."""
+    f = np.float32
+    n = torch.arange(args.n, dtype=torch.int64)
+    h, W = args.h, args.W
+    s, row, px = ray_lattice(n, h, W, bool(args.blocked))
+    if args.pixel_order:
+        c = (s * h * W + row // 8 * (W // 16) * 128 + px // 16 * 128
+             + row % 8 * 16 + px % 16)
+    else:
+        c = n
+    jx, jy, lu1, lu2 = (uniform_at(k, c) for k in camera_prologue_keys(
+        (args.k0, args.k1)))
+    py = (args.H - 1) - (args.row0 + row)
+
+    def t(x):
+        return torch.tensor(f(x))
+
+    m = [t(x) for x in args.m]
+    u = (px.to(torch.float32) + jx) / t(args.W) * 2.0 - 1.0
+    v = (py.to(torch.float32) + jy) / t(args.H) * 2.0 - 1.0
+    r = torch.sqrt(lu1)
+    phi = t(2.0 * 3.14159265) * lu2
+    lens_u, lens_v = r * torch.cos(phi), r * torch.sin(phi)
+
+    def normalize(x, y, z):
+        inv = 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z,
+                                               t(1e-20)))
+        return x * inv, y * inv, z * inv
+
+    dx, dy = u * t(args.thf_aspect), v * t(args.thf)
+    d = normalize(*(m[4 * k] * dx + m[4 * k + 1] * dy + m[4 * k + 2]
+                    for k in range(3)))
+    cos_fwd = d[0] * m[2] + d[1] * m[6] + d[2] * m[10]
+    focus_t = t(args.focus) / torch.clamp_min(cos_fwd, t(1e-6))
+    focal = [m[4 * k + 3] + d[k] * focus_t for k in range(3)]
+    lu, lv = lens_u * t(args.aperture), lens_v * t(args.aperture)
+    o = [m[4 * k + 3] + m[4 * k] * lu + m[4 * k + 1] * lv for k in range(3)]
+    d = normalize(*(focal[k] - o[k] for k in range(3)))
+    return torch.stack(o), torch.stack(d)
+
+
 def bounce_rows_twin(k_bounce, cfg, h, row0, blocked):
     """The (bounces, 5, N) rows the kernel writes, ray by ray."""
     N = cfg.spp * h * cfg.width
     n = torch.arange(N, dtype=torch.int64)
     c_rr = rr_counter(cfg, h, row0, blocked, n)
-    keys = rng.bounce_keys(k_bounce, cfg.bounces)
+    keys = bounce_prologue_keys(k_bounce, cfg.bounces)
     out = torch.empty((cfg.bounces, 5, N), dtype=torch.float32)
     for b in range(cfg.bounces):
         out[b, 0] = uniform_at(keys[b, 0], n)

@@ -35,8 +35,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "env" and "env_planes" count the sky-tap kernel by its fetch: the packed
 # words or the byte planes.
 LAUNCHES = {"path": 0, "trace": 0, "env": 0, "env_planes": 0, "uniform": 0,
-            "bounce_rows": 0, "atrous": 0}
-# Bounces whose keys fit BounceArgs (URT_MAX_BOUNCES in uniform_kernel.cu).
+            "bounce_rows": 0, "camera": 0, "atrous": 0}
+# Bounces whose keys the uniform-row kernel's prologue holds
+# (URT_MAX_BOUNCES in uniform_kernel.cu).
 MAX_BOUNCES = 32
 
 _LIB = None
@@ -62,17 +63,33 @@ class SceneArgs(ctypes.Structure):
 
 
 class BounceArgs(ctypes.Structure):
-    """Mirror of ``struct BounceArgs`` in csrc/uniform_kernel.cu: the per-
-    bounce keys and the ray lattice of one frame's uniform rows, handed to
-    the kernel by value."""
+    """Mirror of ``struct BounceArgs`` in csrc/uniform_kernel.cu: the bounce
+    key k_bounce (the kernel derives the per-bounce keys from it) and the
+    ray lattice of one frame's uniform rows, handed to the kernel by
+    value."""
 
     _fields_ = [
-        ("keys", ctypes.c_uint32 * (MAX_BOUNCES * 4 * 2)),
+        ("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32),
         ("n", ctypes.c_int), ("nb", ctypes.c_int), ("h", ctypes.c_int),
         ("W", ctypes.c_int), ("row0", ctypes.c_int), ("Hg", ctypes.c_int),
         ("Wg", ctypes.c_int), ("blocked", ctypes.c_int),
         ("rr_step", ctypes.c_int), ("rr_lo", ctypes.c_int),
         ("rr_hi", ctypes.c_int),
+    ]
+
+
+class CameraArgs(ctypes.Structure):
+    """Mirror of ``struct CameraArgs`` in csrc/camera_kernel.cu: the frame
+    key, the ray lattice and the camera of one launch of the camera-ray
+    kernel, handed to the kernel by value."""
+
+    _fields_ = [
+        ("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32),
+        ("n", ctypes.c_int), ("h", ctypes.c_int), ("W", ctypes.c_int),
+        ("H", ctypes.c_int), ("row0", ctypes.c_int), ("blocked", ctypes.c_int),
+        ("pixel_order", ctypes.c_int), ("m", ctypes.c_float * 12),
+        ("thf", ctypes.c_float), ("thf_aspect", ctypes.c_float),
+        ("focus", ctypes.c_float), ("aperture", ctypes.c_float),
     ]
 
 
@@ -152,10 +169,12 @@ def lib() -> ctypes.CDLL:
             p, i, i, i, p]
         so.urt_uniform.argtypes = [u32, u32, p, ctypes.c_longlong, p]
         so.urt_bounce_rows.argtypes = [p, p, p]
+        so.urt_camera_rays.argtypes = [p, p, p]
         f32 = ctypes.c_float
         so.urt_atrous.argtypes = [p, p, p, p, i, i, i, f32, f32, f32, p]
         for fn in (so.urt_trace_hits, so.urt_path_trace, so.urt_sky_tap,
-                   so.urt_uniform, so.urt_bounce_rows, so.urt_atrous):
+                   so.urt_uniform, so.urt_bounce_rows, so.urt_camera_rays,
+                   so.urt_atrous):
             fn.restype = ctypes.c_int
         _LIB = so
     return _LIB

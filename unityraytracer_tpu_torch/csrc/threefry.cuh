@@ -34,6 +34,17 @@ static __device__ __forceinline__ void urt_threefry2x32(uint32_t k0,
   }
 }
 
+// fold_in(key, data) of rng.py, the hash of the counter pair (0, data); key
+// j of split(key, num) is the same hash with data = j.
+static __device__ __forceinline__ void urt_fold_in(uint32_t k0, uint32_t k1,
+                                                   uint32_t data, uint32_t& o0,
+                                                   uint32_t& o1) {
+  uint32_t x0 = 0u, x1 = data;
+  urt_threefry2x32(k0, k1, x0, x1);
+  o0 = x0;
+  o1 = x1;
+}
+
 static __device__ __forceinline__ float urt_uniform_at(uint32_t k0,
                                                        uint32_t k1,
                                                        uint64_t i) {

@@ -6,8 +6,10 @@ The port of the JAX package's ``render.py``:
   bounced ``bounces`` times through a tracer (``"brute"`` or the
   closest-hit kernel), with wavefront parking and Russian roulette.
 * ``render_sample_mega``: the same frame through the path kernel — every
-  bounce in one launch, fed the same uniform rows, which ``bounce_rows``
-  draws in one launch of the threefry kernel; with ``split_bounce``,
+  bounce in one launch, fed camera rays that ``_camera_rays`` makes from the
+  frame key in one launch of the camera-ray kernel and the same uniform
+  rows, which ``bounce_rows`` draws in one launch of the threefry kernel
+  (both kernels derive their keys on the card); with ``split_bounce``,
   the deep bounces on a compact buffer of the surviving rays
   (``_path_trace_split``); then the sky tap, whose kernel draws, picks,
   fetches and composes into the radiance in one launch (``_env_tap``).
@@ -164,23 +166,83 @@ def _block_permutes(h: int, W: int, spp: int, blocked: bool):
     return to_blocks, from_blocks
 
 
-def _camera_rays(camera, key, cfg, h, W, spp, row0, blocked, draw, device):
-    """Jittered thin-lens camera rays in ray-layout order (keys k_jit,
-    k_lens of the frame key, as in the JAX package)."""
-    H = cfg.height
+def camera_draws_plain(key, h: int, W: int, spp: int, blocked: bool,
+                       device):
+    """The camera's four uniform rows in ray order: jitter x and y at keys
+    fold_in(k_jit, 0 | 1), the lens pair at fold_in(k_lens, 0 | 1), where
+    k_jit, k_lens = split(key, 3)[:2], each drawn with the int64 hash of
+    ``rng.uniform_plain`` and moved to the ray's slot by ``_draw_fn``."""
     N = spp * h * W
-    k_jit, k_lens, k_bounce = rng.split(key, 3)
+    draw = _draw_fn(h, W, spp, blocked)
+    k_jit, k_lens, _ = rng.split(key, 3)
+    return tuple(draw(rng.uniform_plain(rng.fold_in(k, r), (N,), device))
+                 for k in (k_jit, k_lens) for r in (0, 1))
+
+
+def camera_rays_plain(camera: Camera, key, cfg: RenderConfig, h: int, W: int,
+                      spp: int, row0: int, blocked: bool, device):
+    """Plain version of the camera-ray kernel: jittered thin-lens rays
+    (ro, rd) in ray-layout order, as torch ops over (N,) rows."""
+    H = cfg.height
+    jx, jy, lu1, lu2 = camera_draws_plain(key, h, W, spp, blocked, device)
     px, prow = _ray_lattice(h, W, spp, blocked, device)
     py = (H - 1) - (row0 + prow)
-    jx = draw(_uniform(rng.fold_in(k_jit, 0), N, device))
-    jy = draw(_uniform(rng.fold_in(k_jit, 1), N, device))
-    u = (px.to(torch.float32) + jx) / W * 2.0 - 1.0
-    v = (py.to(torch.float32) + jy) / H * 2.0 - 1.0
-    lu1 = draw(_uniform(rng.fold_in(k_lens, 0), N, device))
-    lu2 = draw(_uniform(rng.fold_in(k_lens, 1), N, device))
+    # Tensor divisors: by a Python scalar, torch's CUDA division multiplies
+    # by its reciprocal, which rounds unlike the CPU's and the kernel's
+    # division.
+    w, hh = (torch.full((), float(x), dtype=torch.float32, device=device)
+             for x in (W, H))
+    u = (px.to(torch.float32) + jx) / w * 2.0 - 1.0
+    v = (py.to(torch.float32) + jy) / hh * 2.0 - 1.0
     lens_u, lens_v = sample_unit_disk(lu1, lu2)
-    ro, rd = camera_rays_soa(camera, u, v, lens_u, lens_v)
-    return ro, rd, k_bounce
+    return camera_rays_soa(camera, u, v, lens_u, lens_v)
+
+
+def camera_args(camera: Camera, key, cfg: RenderConfig, h: int, W: int,
+                spp: int, row0: int, blocked: bool) -> _build.CameraArgs:
+    """The camera-ray kernel's by-value arguments: the frame key's words,
+    the ray lattice and the camera rounded to float32 as
+    ``camera_rays_soa`` rounds it (tan_half_fov * aspect formed in
+    float32)."""
+    N = spp * h * W
+    if N >= 2 ** 31:
+        raise ValueError(f"{N} rays exceed the camera-ray kernel's 32-bit "
+                         "indexing")
+    f32 = np.float32
+    a = _build.CameraArgs()
+    a.k0, a.k1 = rng._words(key)
+    a.n, a.h, a.W, a.H, a.row0 = N, h, W, cfg.height, row0
+    a.blocked = int(blocked)
+    a.pixel_order = int(_pixel_order(h, W, blocked))
+    a.m[:] = np.asarray(camera.cam_to_world, f32)[:3].reshape(12).tolist()
+    thf = f32(camera.tan_half_fov)
+    a.thf, a.thf_aspect = thf, thf * f32(camera.aspect)
+    a.focus, a.aperture = f32(camera.focus_dist), f32(camera.aperture)
+    return a
+
+
+def _camera_rays(camera, key, cfg, h, W, spp, row0, blocked, device):
+    """Jittered thin-lens camera rays in ray-layout order (keys k_jit,
+    k_lens of the frame key, as in the JAX package), and the frame's bounce
+    key k_bounce = split(key, 3)[2]. For a CUDA device one launch of the
+    camera-ray kernel, which derives k_jit and k_lens itself and writes ro
+    and rd as the rows of one (6, N) buffer; for the CPU,
+    ``camera_rays_plain``."""
+    device = torch.device(device)
+    k_bounce = rng.fold_in(key, 2)
+    if device.type == "cpu":
+        ro, rd = camera_rays_plain(camera, key, cfg, h, W, spp, row0, blocked,
+                                   device)
+        return ro, rd, k_bounce
+    if device.type != "cuda":
+        raise ValueError(f"no camera-ray kernel for device {device}")
+    args = camera_args(camera, key, cfg, h, W, spp, row0, blocked)
+    out = torch.empty((6, args.n), dtype=torch.float32, device=device)
+    code = _build.lib().urt_camera_rays(ctypes.byref(args), out.data_ptr(),
+                                        _build.stream_ptr(device))
+    _build.LAUNCHES["camera"] += 1
+    _build.check(code, "camera")
+    return (out[0], out[1], out[2]), (out[3], out[4], out[5]), k_bounce
 
 
 def _sky_keys(cfg, k_bounce):
@@ -237,7 +299,7 @@ def render_sample(scene: Scene, tracer: Callable, camera: Camera, key,
     blocked = cfg.tracer == "pallas" and h % 8 == 0 and W % 16 == 0
     draw = _draw_fn(h, W, spp, blocked)
     ro, rd, k_bounce = _camera_rays(camera, key, cfg, h, W, spp, row0,
-                                    blocked, draw, device)
+                                    blocked, device)
     to_blocks, from_blocks = _block_permutes(h, W, spp, blocked)
 
     def uniform(key_):
@@ -310,9 +372,9 @@ def bounce_rows_plain(k_bounce, cfg: RenderConfig, h: int, row0: int,
     rr_lo, rr_hi = _rr_bounces(cfg)
     two_pi = 2.0 * 3.14159265
     uni = torch.empty((cfg.bounces, 5, N), dtype=torch.float32, device=device)
+    keys = rng.bounce_keys(k_bounce, cfg.bounces)
     for b in range(cfg.bounces):
-        kb = rng.fold_in(k_bounce, b)
-        u_r, u1, u2 = (rng.uniform_plain(rng.fold_in(kb, i), (N,), device)
+        u_r, u1, u2 = (rng.uniform_plain(keys[b, i], (N,), device)
                        for i in range(3))
         uni[b, 0] = u_r
         uni[b, 1] = torch.log2(torch.clamp_min(u1, 1e-12))
@@ -320,7 +382,7 @@ def bounce_rows_plain(k_bounce, cfg: RenderConfig, h: int, row0: int,
         uni[b, 2] = torch.cos(phi)
         uni[b, 3] = torch.sin(phi)
         if rr_lo <= b < rr_hi:
-            uni[b, 4] = _rr_uniform(rng.fold_in(kb, 3), cfg, spp, h, W, row0,
+            uni[b, 4] = _rr_uniform(keys[b, 3], cfg, spp, h, W, row0,
                                     to_blocks, device, rng.uniform_plain)
         else:
             uni[b, 4] = 1.0
@@ -330,7 +392,9 @@ def bounce_rows_plain(k_bounce, cfg: RenderConfig, h: int, row0: int,
 def bounce_args(k_bounce, cfg: RenderConfig, h: int, row0: int,
                 blocked: bool) -> _build.BounceArgs:
     """The threefry kernel's by-value arguments for one frame's uniform
-    rows: the keys of ``rng.bounce_keys`` and the ray lattice."""
+    rows: k_bounce's two words (the kernel derives the keys of
+    ``rng.bounce_keys`` from them) and the ray lattice. No hash runs
+    here."""
     if cfg.bounces > _build.MAX_BOUNCES:
         raise ValueError(f"{cfg.bounces} bounces: the uniform-row kernel "
                          f"takes at most {_build.MAX_BOUNCES}")
@@ -339,8 +403,7 @@ def bounce_args(k_bounce, cfg: RenderConfig, h: int, row0: int,
         raise ValueError(f"{cfg.spp * h * W} rays exceed the uniform-row "
                          "kernel's 32-bit indexing")
     args = _build.BounceArgs()
-    keys = rng.bounce_keys(k_bounce, cfg.bounces).reshape(-1)
-    args.keys[:keys.size] = keys.tolist()
+    args.k0, args.k1 = rng._words(k_bounce)
     args.n, args.nb, args.h, args.W, args.row0 = (cfg.spp * h * W,
                                                   cfg.bounces, h, W, row0)
     args.Hg, args.Wg = (cfg.height + 7) // 8, (W + 127) // 128
@@ -356,7 +419,7 @@ def bounce_rows(k_bounce, cfg: RenderConfig, h: int, row0: int,
     rows from ``row0``: roulette u_r, log2 max(u1, 1e-12), cos 2 pi u2,
     sin 2 pi u2 and the Russian-roulette draw (1 outside the bounces that
     draw it), per ray in 8x16 block order when ``blocked``. For a CUDA
-    device in one launch of the threefry kernel, with the keys passed by
+    device in one launch of the threefry kernel, with k_bounce passed by
     value (no host-to-device copy); for the CPU, ``bounce_rows_plain``."""
     device = torch.device(device)
     if device.type == "cpu":
@@ -382,9 +445,8 @@ def _frame_inputs(scene: Scene, camera: Camera, key, cfg: RenderConfig,
     h = H if rows is None else rows
     device = _scene_device(scene)
     blocked = MEGA_BLOCKED and h % 8 == 0 and W % 16 == 0
-    draw = _draw_fn(h, W, spp, blocked)
     ro, rd, k_bounce = _camera_rays(camera, key, cfg, h, W, spp, row0,
-                                    blocked, draw, device)
+                                    blocked, device)
     _, from_blocks = _block_permutes(h, W, spp, blocked)
     uni = bounce_rows(k_bounce, cfg, h, row0, blocked, device)
     return ro, rd, uni, k_bounce, from_blocks

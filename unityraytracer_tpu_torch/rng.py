@@ -13,8 +13,9 @@ in one launch of the threefry kernel (``csrc/uniform_kernel.cu``), for the
 CPU through its plain version ``uniform_plain``, whose uint32 arithmetic
 runs in int64 tensors masked with 0xFFFFFFFF (torch's uint32 coverage is
 thin). ``bounce_keys`` derives the per-bounce keys of the path kernel's
-uniform rows on the host, for the kernel that draws them
-(``render.bounce_rows``).
+uniform rows on the host, for their plain version
+(``render.bounce_rows_plain``; the kernel derives the same keys itself,
+from k_bounce).
 
 Reference: ``jax/_src/prng.py`` — ``threefry_2x32``,
 ``_threefry_split_foldlike``, ``_threefry_fold_in``,
@@ -72,11 +73,12 @@ def key(seed: int) -> np.ndarray:
 
 
 def split(key_: np.ndarray, num: int = 2) -> np.ndarray:
-    """``jax.random.split``: (num, 2) keys, key i = threefry(key, (0, i))."""
+    """``jax.random.split``: (num, 2) keys, key i = threefry(key, (0, i)),
+    which is ``fold_in(key, i)``; hashed on Python ints (the renderer splits
+    in two or three, where numpy's per-call cost outweighs the hash)."""
     k1, k2 = _words(key_)
-    lo = np.arange(num, dtype=np.uint64)
-    b1, b2 = threefry2x32(k1, k2, np.zeros_like(lo), lo)
-    return np.stack([b1, b2], axis=-1).astype(np.uint32)
+    return np.array([threefry2x32(k1, k2, 0, i) for i in range(num)],
+                    np.uint32).reshape(num, 2)
 
 
 def fold_in(key_: np.ndarray, data: int) -> np.ndarray:

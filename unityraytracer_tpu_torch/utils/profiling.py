@@ -38,6 +38,7 @@ DEFAULT_STAGES: Sequence[Tuple[str, str]] = (
     ("env", r"urt_sky_tap"),
     ("rng", r"urt_uniform|urt_bounce_rows"),
     ("denoise", r"urt_atrous"),
+    ("camera", r"urt_camera"),
     ("copy", r"Memcpy|Memset|copy|CatArray"),
     ("index", r"index|gather|scatter"),
     ("reduce", r"reduce_kernel|scan"),
