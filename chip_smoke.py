@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. the kernel build from ``unityraytracer_tpu_torch/csrc`` (nvcc, sm_90a);
+2. the kernel build from ``unityraytracer_tpu_torch/csrc`` (nvcc, sm_90a),
+   and the native host library's (g++, ``native.build``);
 3. each CUDA kernel against its plain PyTorch version on the same inputs:
    the sky-tap kernel (draws, texel pick, fetch, decode and compose in one
    launch) bit-identical in both fetch modes, on the main path's own
@@ -109,8 +110,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
    f. ``render --unity`` on ``UNITY_SCENE`` (2 spheres, 14 triangles, the
       settings line);
    g. ``preview --frames 12 --every 4 --port p`` with both URLs fetched;
-   h. ``--shard rows``, ``--tracer cluster`` and ``--rng rbg`` raise, and
-      ``preview --shard rows`` returns 2.
+   h. ``--rng rbg`` and an unknown tracer raise, and ``preview --shard
+      rows`` returns 2.
+
+9. the rest of the port's surface at the main path's width
+   (``accel_shard_native_phase``), each path counted on its own:
+   a. ``Renderer(tracer="bvh")`` and ``"cluster"`` at 1920x1080 x 8: 8
+      closest-hit launches a frame, no path kernel, the traversal
+      strategies and the plain closest hit patched to raise; the two
+      accumulators bit-equal; the oracle gate at 192x96 x 4 for each; the
+      kernel against both strategies run on the card on 36,864 rays (the
+      192x96 pixel centres and their mirror bounce): prims equal apart from
+      near ties (t within 1e-5 relative), which are counted;
+   b. ``ShardedRenderer`` on four logical shards of the card (``[cuda:0] *
+      4``): ``"scene"`` with ``"cluster"`` and ``"pallas"`` against a
+      ``Renderer(megakernel=False)`` of the same seed (RMSE < 1e-3), 4 x 8
+      closest-hit launches a frame, each shard's triangles, accel bytes and
+      box and triangle tests a ray, the combine's CUDA-event time;
+      ``"rows"`` with the path kernel, each band bit-equal to
+      ``render_frame(row0=k*h, rows=h)`` at ``fold_in(fold_in(key, 0),
+      k)``; ``"spp"``, and ``"rows_scene"`` on a 2x2 mesh (finite image,
+      sample counts); ms a frame of each;
+   c. ``render --shard scene``, ``--shard rows`` and ``--tracer bvh`` at
+      1080p x 8, 4 frames, in this process with their launch counts, and
+      ``--shard scene`` as a child process with its wall time;
+   d. the native host library (its build seconds are printed in phase 2):
+      the LBVH build with and without it at 100k and 1M triangles
+      (identical accels, both times) and the PIZ decode of a 1024x512
+      float sky with and without it (equal, both times), then ``render
+      --env`` on that sky.
 
 Phase 3 also holds the path kernel's 16 resume-state rows against the plain
 version's (bit for bit, at 192x96 x 4 and on the 1080p x 8 subset with two
@@ -157,6 +185,9 @@ import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_TRIS = 100_000
+# Triangle counts at which phase 9 times the LBVH build with and without
+# the native host library.
+NATIVE_TRIS = (N_TRIS, 1_000_000)
 MAIN = dict(width=1920, height=1080, spp=1, bounces=8, tracer="pallas",
             wavefront=True, rr_group="step")
 # The reference's quality preset (SampleScene.unity:433-434: 10 bounces,
@@ -187,11 +218,16 @@ LAUNCHES_BEFORE = 120.3
 CAMERA_ULP = 0
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): memory, and
-# float32 outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz). The
-# int32 rate is the integer ALU's 64 lanes an SM a clock: 132 SMs x 64 lanes
-# x 1.98 GHz; an SM issues 128 instructions of any kind a clock, twice that.
+# float32 outside the tensor cores as separate instructions: 132 SMs x 128
+# lanes x 1.98 GHz. The data sheet's 67 TFLOP/s counts an FMA as two
+# operations; every kernel here is built with -fmad=false and spells each
+# product and sum as its own instruction, so each operation counted below
+# is one instruction, and 33.45e12 of them a second is the most the card
+# issues. The int32 rate is the integer ALU's 64 lanes an SM a clock: 132
+# SMs x 64 lanes x 1.98 GHz; an SM issues 128 instructions of any kind a
+# clock, twice that.
 PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
+PEAK_F32 = 132 * 128 * 1.98e9
 PEAK_I32 = 132 * 64 * 1.98e9
 # SASS opcodes that run on the integer ALU pipe alone (IMAD runs on the
 # multiply-add pipe, uniform opcodes on the uniform pipe).
@@ -444,17 +480,68 @@ def tensors_of(obj) -> list:
     return [t for k in kids for t in tensors_of(k)]
 
 
+def cli_run(counted, argv):
+    """``main(argv)`` of the command line in this process -> (exit code,
+    its stdout and stderr, the renderer it built, seconds by stage, launch
+    counts). Raises if that renderer holds a tensor off the card."""
+    import contextlib
+    import io
+
+    import unityraytracer_tpu_torch.__main__ as cli
+    from unityraytracer_tpu_torch import Renderer
+    from unityraytracer_tpu_torch.models import skybox
+
+    built, secs = [], {}
+    make, build_scene, load_env = (cli._make_renderer, cli._build_scene,
+                                   skybox.load_environment)
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            secs[name] = time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def make_and_keep(args):
+        built.append(make(args))
+        return built[-1]
+
+    cli._make_renderer = timed("renderer", make_and_keep)
+    cli._build_scene = timed("scene", build_scene)
+    skybox.load_environment = timed("env_load", load_env)
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc, la = counted(lambda: cli.main(argv))
+        secs["main"] = time.perf_counter() - t0
+    finally:
+        cli._make_renderer, cli._build_scene = make, build_scene
+        skybox.load_environment = load_env
+    r = built[0] if built else None
+    if r is not None:
+        held = tensors_of(vars(r))
+        off = [tuple(t.shape) for t in held if not t.is_cuda]
+        found = {id(t) for t in held}
+        if off or isinstance(r, Renderer) and (
+                r.device.type != "cuda" or not {
+                    id(r.state.accum), id(r.scene.skybox_rgbe),
+                    *map(id, r.accel.tables.values())} <= found):
+            raise AssertionError(f"{argv[:3]}: the renderer holds tensors "
+                                 f"off the card ({off}), or the walk "
+                                 "missed its accumulator, sky or tables")
+    return rc, out.getvalue(), err.getvalue(), r, secs, la
+
+
 def command_line_phase(counted, bits_equal) -> dict:
     """Phase 8: the command line at full width, on the card. Returns the
     launch counts of its paths by name. Raises on any failure; a renderer
     the command line built must hold every tensor on the card."""
-    import contextlib
-    import io
-
     import numpy as np
     import torch
 
-    import unityraytracer_tpu_torch.__main__ as cli
     from unityraytracer_tpu_torch import RenderConfig, Renderer
     from unityraytracer_tpu_torch.models import fixtures, skybox
     from unityraytracer_tpu_torch.models.exr import load_exr, write_exr
@@ -469,49 +556,7 @@ def command_line_phase(counted, bits_equal) -> dict:
     bench = ["--scene", "bench", "--tris", str(N_TRIS)]
 
     def run(argv):
-        """``main(argv)`` in this process -> (exit code, its stdout and
-        stderr, the renderer it built, seconds by stage, launch counts)."""
-        built, secs = [], {}
-        make, build_scene, load_env = (cli._make_renderer, cli._build_scene,
-                                       skybox.load_environment)
-
-        def timed(name, fn):
-            def wrapper(*a, **kw):
-                t0 = time.perf_counter()
-                out = fn(*a, **kw)
-                secs[name] = time.perf_counter() - t0
-                return out
-            return wrapper
-
-        def make_and_keep(args):
-            built.append(make(args))
-            return built[-1]
-
-        cli._make_renderer = timed("renderer", make_and_keep)
-        cli._build_scene = timed("scene", build_scene)
-        skybox.load_environment = timed("env_load", load_env)
-        out, err = io.StringIO(), io.StringIO()
-        try:
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out), \
-                    contextlib.redirect_stderr(err):
-                rc, la = counted(lambda: cli.main(argv))
-            secs["main"] = time.perf_counter() - t0
-        finally:
-            cli._make_renderer, cli._build_scene = make, build_scene
-            skybox.load_environment = load_env
-        r = built[0] if built else None
-        if r is not None:
-            held = tensors_of(vars(r))
-            off = [tuple(t.shape) for t in held if not t.is_cuda]
-            found = {id(t) for t in held}
-            if off or r.device.type != "cuda" or not {
-                    id(r.state.accum), id(r.scene.skybox_rgbe),
-                    *map(id, r.accel.tables.values())} <= found:
-                raise AssertionError(f"{argv[:3]}: the renderer holds tensors "
-                                     f"off the card ({off}), or the walk "
-                                     "missed its accumulator, sky or tables")
-        return rc, out.getvalue(), err.getvalue(), r, secs, la
+        return cli_run(counted, argv)
 
     def expect(la, frames, trace=0, atrous=0):
         want = dict(path=frames, env=frames, uniform=0, bounce_rows=frames,
@@ -774,15 +819,13 @@ def command_line_phase(counted, bits_equal) -> dict:
             raise AssertionError("8g: preview")
         del r
 
-        # 8h. What is not ported raises, and renders nothing.
+        # 8h. What the port refuses raises, and renders nothing.
         base = ["render", *bench, "-o",
                 os.path.join(tmp, "never.png")]
         raised = {}
-        for flags, exc, word in ((["--shard", "rows"], NotImplementedError,
-                                  "multi-GPU"),
-                                 (["--tracer", "cluster"], NotImplementedError,
-                                  "not ported yet"),
-                                 (["--rng", "rbg"], ValueError, "rbg")):
+        for flags, exc, word in ((["--rng", "rbg"], ValueError, "rbg"),
+                                 (["--tracer", "embree"], ValueError,
+                                  "unknown tracer")):
             try:
                 run(base + flags)
             except exc as e:
@@ -802,6 +845,324 @@ def command_line_phase(counted, bits_equal) -> dict:
     return by_path
 
 
+def accel_shard_native_phase(counted, bits_equal, scene_np, accel_np, ks,
+                             cfg_s, oracle, oracle_key) -> dict:
+    """Phase 9: the "bvh" and "cluster" tracers, ``ShardedRenderer`` over
+    four logical shards of the card, their command-line flags and the native
+    host library, at the main path's width. Returns the launch counts of its
+    paths by name. Raises on any failure."""
+    import numpy as np
+    import torch
+
+    from unityraytracer_tpu_torch import RenderConfig, Renderer, native, rng
+    from unityraytracer_tpu_torch.models import fixtures, skybox
+    from unityraytracer_tpu_torch.models.exr import load_exr, write_exr
+    from unityraytracer_tpu_torch.ops import cuda_trace, traverse
+    from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
+    from unityraytracer_tpu_torch.ops.cuda_trace import trace_hits
+    from unityraytracer_tpu_torch.ops.shade import MISS_T
+    from unityraytracer_tpu_torch.parallel import scene_shard
+    from unityraytracer_tpu_torch.parallel.sharding import (
+        ShardedRenderer, create_sharded_state, gather_image, make_mesh,
+        make_mesh2, make_sharded_step)
+    from unityraytracer_tpu_torch.render import (pixel_center_rays,
+                                                 render_frame)
+    from unityraytracer_tpu_torch.utils.image import rmse
+
+    dev = ks.device
+    scene = ks.scene
+    B, W, H, F = MAIN["bounces"], MAIN["width"], MAIN["height"], 4
+    cam_main = fixtures.bench_camera(aspect=W / H)
+    cam_small = fixtures.bench_camera(aspect=2.0)
+    by_path = {}
+
+    def frames(r):
+        """F timed ``step(1)`` frames of ``r``, counted; -> (ms, launches)."""
+        ms = []
+
+        def run():
+            for _ in range(F):
+                r.step(1)
+                ms.append(r.stats["ms_per_frame"])
+        _, la = counted(run)
+        return ms, la
+
+    def med(ms):
+        return float(np.median(ms))
+
+    # 9a. The two accel tracers at 1080p x 8: the closest-hit kernel once a
+    # bounce, and never a traversal strategy or a plain version.
+    def refuse(name):
+        def fn(*a, **kw):
+            raise AssertionError(f"{name} ran on the card's render path")
+        return fn
+
+    patched = {(traverse, "_triangle_bvh_candidate"),
+               (traverse, "_triangle_cluster_candidate"),
+               (cuda_trace, "closest_hit_plain")}
+    saved = {(m, n): getattr(m, n) for m, n in patched}
+    accums = {}
+    try:
+        for m, n in patched:
+            setattr(m, n, refuse(n))
+        for t in ("bvh", "cluster"):
+            r = Renderer(scene_np, cam_main, RenderConfig(**dict(MAIN,
+                                                                 tracer=t)),
+                         accel=accel_np, seed=0, device=dev).step(1)
+            ms, la = frames(r)
+            by_path[t] = la
+            img = r.image
+            log(f"9a tracer={t!r} {W}x{H}x{B}: {med(ms):.2f} ms/frame median "
+                f"of {F} (min {min(ms):.2f}, max {max(ms):.2f}); launches "
+                f"{la}")
+            if not (la["trace"] == B * F and la["path"] == 0
+                    and la["camera"] == F and np.isfinite(img).all()
+                    and img.max() > 0):
+                raise AssertionError(f"9a {t}: expected {B} closest-hit "
+                                     f"launches a frame and no path kernel, "
+                                     f"got {la}")
+            accums[t] = r.state.accum
+            del r
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    same = bits_equal(accums["bvh"], accums["cluster"])
+    log(f"9a bvh and cluster accumulators bit-equal: {same}")
+    if not same:
+        raise AssertionError("9a: the bvh and cluster frames differ")
+    del accums
+    for t in ("bvh", "cluster"):
+        fast = render_frame(scene, cfg_s.replace(tracer=t), cam_small,
+                            oracle_key, ks).cpu().numpy()
+        e = rmse(fast, oracle)
+        log(f"9a oracle gate tracer={t!r}: RMSE {e:.3e} against brute "
+            "(192x96x4, same key)")
+        if not (np.isfinite(fast).all() and e < 1e-3):
+            raise AssertionError(f"9a oracle gate {t}: RMSE {e}")
+    # Kernel 2 against the two strategies run on the card: 192x96 pixel
+    # centres and their mirror bounce off each hit.
+    ro, rd = pixel_center_rays(cam_small, 96, 192, dev)
+    h = trace_hits(ks, ro, rd)
+    ok = h.t < MISS_T
+    dn = sum(rd[k] * h.normal[k] for k in range(3))
+    ro = tuple(torch.cat([ro[k], torch.where(
+        ok, h.position[k] + h.normal[k] * 1e-3, ro[k])]) for k in range(3))
+    rd = tuple(torch.cat([rd[k], torch.where(
+        ok, rd[k] - 2 * dn * h.normal[k], rd[k])]) for k in range(3))
+    hk = trace_hits(ks, ro, rd)
+    n_r = hk.t.shape[0]
+    for t in ("bvh", "cluster"):
+        cfg_t = RenderConfig(tracer=t, cluster_size=64, ray_chunk=1 << 16)
+        t0 = time.perf_counter()
+        hs = traverse.accel_tracer_plain(scene, ks, cfg_t)(ro, rd)
+        hs.t.cpu()
+        strat_s = time.perf_counter() - t0
+        flips = hk.prim != hs.prim
+        tie = (hk.t - hs.t).abs() <= 1e-5 * hs.t.abs()
+        agree = ~flips & (hs.t < MISS_T)
+        rel = float(((hk.t - hs.t).abs() / hs.t.abs())[agree].max())
+        n_flip, n_far = int(flips.sum()), int((flips & ~tie).sum())
+        log(f"9a kernel 2 vs {t} strategy on the card ({n_r} rays: 192x96 "
+            f"pixel centres and their mirror bounce): prim equal on "
+            f"{n_r - n_flip}, near-tie flips {n_flip - n_far}, other flips "
+            f"{n_far}; t max rel err {rel:.3e} where prims agree; strategy "
+            f"{strat_s:.2f} s")
+        if rel > 1e-5 or n_far or n_flip > 1e-3 * n_r:
+            raise AssertionError(f"9a kernel 2 vs {t}: {n_flip} flips, "
+                                 f"{n_far} beyond a near tie, rel {rel}")
+    del ro, rd, h, hk, hs
+
+    # 9b. ShardedRenderer over four logical shards of the card.
+    mesh4 = make_mesh([dev] * 4)
+    log(f"9b make_mesh(): {len(make_mesh())} device(s); the phase runs on "
+        f"{len(mesh4)} logical shards of {dev}")
+    rp, dp = pixel_center_rays(cam_main, H, W, dev)
+    for t in ("cluster", "pallas"):
+        cfg = RenderConfig(**dict(MAIN, tracer=t))
+        t0 = time.perf_counter()
+        sr = ShardedRenderer(scene_np, cam_main, cfg, mesh=mesh4, seed=5,
+                             mode="scene")
+        setup_s = time.perf_counter() - t0
+        sr.step(1)
+        ms, la = frames(sr)
+        by_path[f"scene_{t}"] = la
+        ref = Renderer(scene_np, cam_main, cfg.replace(megakernel=False),
+                       accel=accel_np, seed=5, device=dev)
+        for _ in range(F + 1):
+            ref.step(1)
+        e = rmse(sr.image, ref.image)
+        worst = float(np.abs(sr.image - ref.image).max())
+        per = []
+        for k, s in enumerate(sr.accel):
+            cnt = torch.empty((2, rp[0].shape[0]), dtype=torch.int32,
+                              device=dev)
+            trace_hits(s, rp, dp, counts=cnt)
+            tests = cnt.sum(dim=1, dtype=torch.int64).cpu().tolist()
+            per.append(dict(shard=k, triangles=s.accel.triangles.count,
+                            accel_bytes=scene_bytes(s),
+                            box_per_ray=tests[0] / rp[0].shape[0],
+                            tri_per_ray=tests[1] / rp[0].shape[0]))
+        hits = [trace_hits(s, rp, dp) for s in sr.accel]
+        comb_ms = cuda_ms(lambda: scene_shard.allreduce_hit(hits), 10, 2)
+        log(f"9b scene mode, tracer={t!r}, 4 shards, {W}x{H}x{B}: "
+            f"{med(ms):.2f} ms/frame median of {F} (min {min(ms):.2f}, max "
+            f"{max(ms):.2f}); setup {setup_s:.2f} s; launches {la}; vs "
+            f"Renderer(megakernel=False) of the same seed: RMSE {e:.3e}, "
+            f"max abs err {worst:.3e}; combine of 4 x {W * H} hits "
+            f"{comb_ms:.3f} ms (CUDA events)")
+        log(f"9b shards (tracer={t!r}; box and triangle tests a ray on the "
+            f"{W}x{H} pixel centres): {json.dumps(per)}")
+        if not (la["trace"] == 4 * B * F and la["path"] == 0 and e < 1e-3
+                and np.isfinite(sr.image).all()):
+            raise AssertionError(f"9b scene {t}: launches {la}, RMSE {e}")
+        del sr, ref, hits
+    del rp, dp
+
+    # rows: band k of a frame is render_frame(row0=k*h, rows=h) at
+    # fold_in(fold_in(key, 0), k), through the path kernel.
+    cfg = RenderConfig(**MAIN)
+    sr = ShardedRenderer(scene_np, cam_main, cfg, mesh=mesh4, accel=accel_np,
+                         seed=0, mode="rows")
+    key = rng.key(7)
+    step = make_sharded_step(cfg, mesh4, "rows")
+    state, la = counted(lambda: step(create_sharded_state(cfg, mesh4, "rows"),
+                                     sr.scenes, cam_main, sr.accel, key, 1))
+    img = gather_image(state)
+    hb = H // 4
+    fkey = rng.fold_in(key, 0)
+    bands_equal = [bits_equal(img[k * hb:(k + 1) * hb], render_frame(
+        sr.scenes[k], cfg, cam_main, rng.fold_in(fkey, k), sr.accel[k],
+        row0=k * hb, rows=hb).cpu()) for k in range(4)]
+    sr.step(1)
+    ms, la_rows = frames(sr)
+    by_path["rows"] = la_rows
+    log(f"9b rows mode, 4 bands of {hb} rows: one step's launches {la}; "
+        f"bands bit-equal to render_frame {bands_equal}; "
+        f"{med(ms):.2f} ms/frame median of {F}; launches {la_rows}")
+    if not (all(bands_equal) and la["path"] == 4 and la_rows["path"] == 4 * F
+            and np.isfinite(sr.image).all()):
+        raise AssertionError(f"9b rows: bands {bands_equal}, {la}")
+    del sr, state, img
+
+    sr = ShardedRenderer(scene_np, cam_main, cfg, mesh=mesh4, accel=accel_np,
+                         seed=0, mode="spp").step(1)
+    ms, la = frames(sr)
+    by_path["spp"] = la
+    img = sr.image
+    log(f"9b spp mode, 4 shards: {med(ms):.2f} ms/frame median of {F}; "
+        f"samples {sr.sample_count}; launches {la}")
+    if not (sr.sample_count == F + 1 and la["path"] == 4 * F
+            and np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError(f"9b spp: {sr.sample_count} samples, {la}")
+    del sr
+
+    mesh2 = make_mesh2(2, 2, [dev] * 4)
+    sr = ShardedRenderer(scene_np, cam_main, cfg.replace(tracer="cluster"),
+                         mesh=mesh2, seed=0, mode="rows_scene").step(1)
+    ms, la = frames(sr)
+    by_path["rows_scene"] = la
+    img = sr.image
+    log(f"9b rows_scene mode, 2 x 2 mesh: {med(ms):.2f} ms/frame median of "
+        f"{F}; samples {sr.sample_count}; launches {la}")
+    if not (sr.sample_count == F + 1 and la["trace"] == 2 * 2 * B * F
+            and np.isfinite(img).all() and img.max() > 0
+            and img.shape == (H, W, 3)):
+        raise AssertionError(f"9b rows_scene: {sr.sample_count}, {la}")
+    del sr, img
+
+    # 9c. The command line: --shard scene, --shard rows, --tracer bvh.
+    tmp = tempfile.mkdtemp(prefix="urt_p9_")
+    try:
+        base = ["render", "--scene", "bench", "--tris", str(N_TRIS),
+                "--width", str(W), "--height", str(H), "--bounces", str(B),
+                "--frames", str(F), "--device", dev.type]
+        for flags, want in ((["--shard", "scene"], dict(trace=B * F)),
+                            (["--shard", "rows"], dict(path=F)),
+                            (["--tracer", "bvh"], dict(trace=B * F))):
+            png = os.path.join(tmp, "_".join(flags).strip("-") + ".png")
+            rc, out, _, r, secs, la = cli_run(counted, base + flags
+                                              + ["-o", png])
+            name = "cli_" + flags[1]
+            by_path[name] = la
+            log(f"9c render {' '.join(flags)} {W}x{H}x{B}, {F} frames: rc "
+                f"{rc}, {out.strip()}; {type(r).__name__}; main "
+                f"{secs['main']:.3f} s; launches {la}")
+            if not (rc == 0 and os.path.getsize(png) > 1000
+                    and all(la[k] == v for k, v in want.items())):
+                raise AssertionError(f"9c {flags}: rc {rc}, {la}")
+            del r
+        child_png = os.path.join(tmp, "child.png")
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-m",
+                                "unityraytracer_tpu_torch", *base, "--shard",
+                                "scene", "-o", child_png], cwd=HERE, env=env,
+                               timeout=600, capture_output=True, text=True)
+        child_s = time.perf_counter() - t0
+        log(f"9c child `python3 -m unityraytracer_tpu_torch render --shard "
+            f"scene`: exit {child.returncode}, wall {child_s:.3f} s from "
+            f"start to exit, {child.stdout.strip()}")
+        if child.returncode != 0 or not os.path.exists(child_png):
+            raise AssertionError(f"9c child exited {child.returncode}: "
+                                 f"{child.stderr[-2000:]}")
+
+        # 9d. The native host library: the LBVH build with and without it
+        # at 100k and 1M triangles, and the PIZ decode of a 1024x512 sky.
+        if not native.available():
+            raise AssertionError(f"native library: {native.BUILD_LOG}")
+        fields = ("cluster_vmin", "cluster_vmax", "node_vmin", "node_vmax",
+                  "node_left", "node_right")
+        for n in NATIVE_TRIS:
+            tris = (scene_np if n == N_TRIS
+                    else fixtures.bench_scene(n_tris=n)).triangles
+            secs = {}
+            built = {}
+            for use in (False, True, False, True):
+                t0 = time.perf_counter()
+                built[use] = build_cluster_accel(tris, 64, use_native=use)
+                secs.setdefault(use, []).append(time.perf_counter() - t0)
+            equal = all(np.array_equal(getattr(built[True], f),
+                                       getattr(built[False], f))
+                        for f in fields)
+            log(f"9d LBVH build at {built[True].triangles.count} triangles "
+                f"({built[True].num_clusters} clusters): numpy "
+                f"{min(secs[False]):.4f} s, native {min(secs[True]):.4f} s "
+                f"(best of 2 each); accels identical {equal}")
+            if not equal:
+                raise AssertionError(f"9d: native and numpy accels differ "
+                                     f"at {n} triangles")
+            del tris, built
+        sky_path = os.path.join(tmp, "sky_piz.exr")
+        write_exr(sky_path, skybox.sun_sky(512, 1024), dtype="float",
+                  compression="piz")
+        t0 = time.perf_counter()
+        fast = load_exr(sky_path)
+        fast_s = time.perf_counter() - t0
+        huf = native.huf_decode
+        native.huf_decode = lambda *a: None
+        try:
+            t0 = time.perf_counter()
+            slow = load_exr(sky_path)
+            slow_s = time.perf_counter() - t0
+        finally:
+            native.huf_decode = huf
+        rc, _, _, r, secs, la = cli_run(counted, base + [
+            "--env", sky_path, "-o", os.path.join(tmp, "piz.png")])
+        by_path["cli_env_piz_native"] = la
+        log(f"9d PIZ 1024x512 float sky: read {fast_s:.3f} s native, "
+            f"{slow_s:.3f} s Python, equal {np.array_equal(fast, slow)}; "
+            f"`render --env` on it: rc {rc}, main {secs['main']:.3f} s, of "
+            f"it the sky read {secs['env_load']:.3f} s")
+        if not (np.array_equal(fast, slow) and rc == 0
+                and la["env"] == F):
+            raise AssertionError("9d: the native PIZ decode differs, or "
+                                 "render --env failed")
+        del r
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -812,7 +1173,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from unityraytracer_tpu_torch import RenderConfig, Renderer, _build, rng
+    from unityraytracer_tpu_torch import (RenderConfig, Renderer, _build,
+                                          native, rng)
     from unityraytracer_tpu_torch.models import fixtures
     from unityraytracer_tpu_torch.ops import cuda_env
     from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
@@ -851,6 +1213,15 @@ def main() -> int:
     _build.lib()
     build_s = time.perf_counter() - t0
     log(f"kernel build {build_s:.2f} s -> {_build.library_path().name}")
+    # The native host library (g++, at first use), which the LBVH build
+    # below and the PIZ decode call.
+    fresh = not native.library_path(native._cxx() or "g++").exists()
+    t0 = time.perf_counter()
+    if not native.build():
+        raise AssertionError(f"native host library: {native.BUILD_LOG}")
+    log(f"native host library {'build' if fresh else 'load'} "
+        f"{time.perf_counter() - t0:.2f} s -> "
+        f"{native.library_path(native._cxx()).name}")
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
@@ -1837,6 +2208,12 @@ def main() -> int:
 
     # 8. The command line at full width.
     by_path.update(command_line_phase(counted, bits_equal))
+
+    # 9. The accel tracers, the sharded renderer, their flags, and the
+    # native host library.
+    by_path.update(accel_shard_native_phase(counted, bits_equal, scene_np,
+                                            accel_np, ks, cfg_s, oracle,
+                                            key))
 
     for k in kernels:
         use = {"env_planes": "bf16", "trace": "preview",

@@ -2,8 +2,9 @@
 render|preview|info``, driven on the CPU (``--device cpu``) at a small size.
 
 A render's PNG equals, byte for byte, the tonemapped image of a ``Renderer``
-built by hand with the same scene, camera, config and seed; the printed
-lines have the JAX command line's format; what is not ported raises. One
+built by hand with the same scene, camera, config and seed (with
+``--shard``, a ``ShardedRenderer`` over ``[cpu]``); the printed lines have
+the JAX command line's format; what the port refuses raises. One
 case runs both command lines on the same arguments (``--tracer brute``) and
 holds the two PNGs within one 8-bit step on at least 99.9% of the pixels
 (the two packages' images differ by an RMSE of ~5e-6 before quantisation).
@@ -29,6 +30,8 @@ from unityraytracer_tpu_torch.models.obj import save_obj
 from unityraytracer_tpu_torch.models import primitives as P
 from unityraytracer_tpu_torch.utils.image import tonemap_aces, write_png
 from unityraytracer_tpu_torch.utils.math3d import trs_matrix
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 W, H = 64, 48
@@ -338,17 +341,14 @@ def test_info_prints_device_and_counts(capsys):
 
 
 def test_what_is_not_ported_raises(tmp_path, capsys):
+    """What the port refuses raises and renders nothing: ``--rng rbg``, an
+    unknown tracer, an unknown ``--shard`` mode; ``preview --shard``
+    returns 2 with the JAX message. ``--tracer bvh|cluster`` and
+    ``--shard`` are ported (``test_accel_tracer_and_shard_flags_render``)."""
     base = ["render", *SIZE, "--device", "cpu", "-o",
             str(tmp_path / "never.png")]
-    for mode in ("rows", "spp", "scene"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            main(base + ["--shard", mode])
     for tracer in ("bvh", "cluster"):
-        with pytest.raises(NotImplementedError,
-                           match=f"tracer '{tracer}' is not ported yet"):
-            main(base + ["--tracer", tracer])
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            RenderConfig(tracer=tracer)
+        assert RenderConfig(tracer=tracer).tracer == tracer
     with pytest.raises(ValueError, match="rbg"):
         main(base + ["--rng", "rbg"])
     with pytest.raises(ValueError, match="unknown tracer"):
@@ -360,6 +360,56 @@ def test_what_is_not_ported_raises(tmp_path, capsys):
         == "--shard applies to `render` (preview is single-chip)"
     with pytest.raises(SystemExit):                   # argparse: bad choice
         main(base + ["--shard", "tiles"])
+
+
+@pytest.mark.parametrize("flags", [["--tracer", "bvh"],
+                                   ["--tracer", "cluster"],
+                                   ["--shard", "rows"], ["--shard", "spp"],
+                                   ["--shard", "scene"],
+                                   ["--shard", "scene", "--tracer", "bvh"]],
+                         ids=lambda f: "-".join(a.strip("-") for a in f))
+def test_accel_tracer_and_shard_flags_render(tmp_path, capsys, flags):
+    """The PNG equals a hand-built renderer's: a ``Renderer`` with the
+    tracer, or a ``ShardedRenderer`` of the mode over ``[cpu]`` (``--shard
+    scene`` turns the default ``pallas`` into ``cluster``)."""
+    from unityraytracer_tpu_torch.parallel.sharding import ShardedRenderer
+
+    png, lines, _ = _render(tmp_path, capsys, *flags)
+    opts = dict(zip(flags[::2], flags[1::2]))
+    shard = opts.get("--shard")
+    tracer = opts.get("--tracer", "cluster" if shard == "scene"
+                      else "pallas")
+    if shard is None:
+        want, _ = _by_hand(fixtures.scene1(), fixtures.scene1_camera(W / H),
+                           tmp_path, tracer=tracer)
+    else:
+        cfg = RenderConfig(width=W, height=H, spp=1, bounces=2,
+                           tracer=tracer, wavefront=True)
+        r = ShardedRenderer(fixtures.scene1(),
+                            fixtures.scene1_camera(W / H), cfg,
+                            mesh=["cpu"], seed=0, mode=shard).step(2)
+        want = open(write_png(str(tmp_path / "hand.png"),
+                              tonemap_aces(r.image)), "rb").read()
+    assert png == want and len(lines) == 1
+
+
+def test_shard_scene_aovs_and_denoise(tmp_path, capsys):
+    """``--aovs`` and ``--denoise`` through the sharded renderer's preview
+    and export mixin."""
+    from unityraytracer_tpu_torch.models.exr import load_exr
+
+    aovs = str(tmp_path / "aovs.exr")
+    png, lines, _ = _render(tmp_path, capsys, "--shard", "scene", "--aovs",
+                            aovs, "--denoise")
+    assert lines[1] == f"wrote {aovs} (beauty/albedo/normal/depth/emission)"
+    _, r = _by_hand(fixtures.scene1(), fixtures.scene1_camera(W / H),
+                    tmp_path, tracer="cluster")
+    write_png(str(tmp_path / "dn.png"),
+              tonemap_aces(r.denoised_image(guided=True)))
+    assert png == open(tmp_path / "dn.png", "rb").read()
+    half = lambda a: a.astype(np.float16).astype(np.float32)  # noqa: E731
+    np.testing.assert_array_equal(load_exr(aovs, part="albedo"),
+                                  half(r.aovs()["albedo"].numpy()))
 
 
 def test_default_device_is_the_card(tmp_path):

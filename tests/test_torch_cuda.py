@@ -522,3 +522,68 @@ def test_command_line_render_on_card_matches_cpu(dev, tmp_path, monkeypatch,
     assert len(lines) == 2 and all(" samples, " in ln for ln in lines)
     a = np.frombuffer((tmp_path / "card.png").read_bytes(), np.uint8)
     assert a[:8].tobytes() == b"\x89PNG\r\n\x1a\n"
+
+
+@pytest.mark.parametrize("tracer", ["bvh", "cluster"])
+def test_accel_tracers_launch_the_trace_kernel(dev, monkeypatch, tracer):
+    """On the card "bvh" and "cluster" trace with the closest-hit kernel,
+    once a bounce, and never run the JAX package's strategies; their frame
+    is the megakernel=False frame of "pallas", bit for bit."""
+    from unityraytracer_tpu_torch.ops import traverse
+
+    def refuse(*a, **k):
+        raise AssertionError("a traversal strategy ran on the card")
+
+    monkeypatch.setattr(traverse, "_triangle_bvh_candidate", refuse)
+    monkeypatch.setattr(traverse, "_triangle_cluster_candidate", refuse)
+    kw = dict(width=64, height=32, spp=1, bounces=4, megakernel=False)
+    scene, cam = fixtures.scene1(), fixtures.scene1_camera(2.0)
+    r = Renderer(scene, cam, RenderConfig(tracer=tracer, **kw), seed=3,
+                 device="cuda").step(1)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    r.step(2)
+    assert _build.LAUNCHES["trace"] == 2 * 4 and _build.LAUNCHES["path"] == 0
+    p = Renderer(scene, cam, RenderConfig(tracer="pallas", **kw), seed=3,
+                 device="cuda").step(1).step(2)
+    assert torch.equal(r.state.accum, p.state.accum)
+
+
+def test_scene_shard_combine_equals_a_single_trace(dev):
+    """Four scene shards on the card, combined, against one trace of the
+    whole scene: t bit for bit on every ray (each triangle's MT97 is the
+    same arithmetic in any accel), the attributes where no exact tie
+    crosses shards."""
+    from unityraytracer_tpu_torch.parallel import scene_shard
+
+    scene = fixtures.bench_scene(n_tris=20_000)
+    cfg = RenderConfig(cluster_size=64, tracer="cluster")
+    ks = KernelScene.create(scene.to(dev), build_cluster_accel(
+        scene.triangles, 64), dev)
+    shards = scene_shard.shard_kernel_scenes(
+        scene, scene_shard.shard_scene_accels(scene, cfg, 4), [dev] * 4)
+    ro, rd = _rays(dev, 200_000, 5)
+    one = trace_hits(ks, ro, rd)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    four = scene_shard.make_scene_sharded_tracer(shards, cfg)(ro, rd)
+    _build.raise_on_overflow(dev)
+    assert _build.LAUNCHES["trace"] == 4
+    assert torch.equal(four.t.view(torch.int32), one.t.view(torch.int32))
+    same = torch.stack([torch.stack(getattr(four, f)) == torch.stack(
+        getattr(one, f)) for f in ("normal", "albedo", "emission")]).all(0) \
+        .all(0)
+    assert float(same.float().mean()) >= 0.9999
+
+
+def test_native_library_builds_and_matches_numpy():
+    """The native host library builds from the checkout on this machine
+    (a host helper: it needs no card, only g++) and gives numpy's tree."""
+    from unityraytracer_tpu_torch import native
+
+    assert native.available(), native.BUILD_LOG
+    tris = fixtures.bench_scene(n_tris=5000).triangles
+    a = build_cluster_accel(tris, 64, use_native=True)
+    b = build_cluster_accel(tris, 64, use_native=False)
+    assert np.array_equal(a.node_left, b.node_left)
+    assert np.array_equal(a.node_right, b.node_right)

@@ -2,8 +2,8 @@
 against the JAX package at the same seed.
 
 Bars: RMSE < 1e-3 against tests/golden_scene1.npz (the repo's golden gate)
-for tracer="brute", "pallas" (path kernel) and "pallas" with
-megakernel=False (closest-hit kernel); RMSE <= 1e-5 between the port's and
+for tracer="brute", "pallas" (path kernel), "pallas" with megakernel=False
+(closest-hit kernel), "bvh" and "cluster"; RMSE <= 1e-5 between the port's and
 the JAX package's brute images of one seed — the random streams are
 bit-identical (test_torch_rng.py), so only float rounding of the
 transcendental functions separates them."""
@@ -25,6 +25,7 @@ from unityraytracer_tpu_torch.models import fixtures as tfix
 from unityraytracer_tpu_torch.render import (RenderState, get_tracer,
                                              render_frame, render_sample)
 from unityraytracer_tpu_torch.utils.image import rmse
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = dict(width=64, height=48, spp=2, bounces=3, tracer="brute",
               ray_chunk=6144)
@@ -36,7 +37,8 @@ def golden():
 
 
 @pytest.mark.parametrize("tracer,mega", [("brute", True), ("pallas", True),
-                                         ("pallas", False)])
+                                         ("pallas", False), ("bvh", False),
+                                         ("cluster", False)])
 def test_golden_scene1(golden, tracer, mega):
     cfg = RenderConfig(**dict(GOLDEN, tracer=tracer, megakernel=mega))
     r = Renderer(tfix.scene1(), tfix.scene1_camera(aspect=64 / 48), cfg,
@@ -147,10 +149,11 @@ def test_config_rejects_unported_knobs(kw, exc):
 
 
 def test_unported_tracers_raise():
-    for name, exc in (("bvh", NotImplementedError),
-                      ("cluster", NotImplementedError), ("nope", ValueError)):
-        with pytest.raises(exc):
-            RenderConfig(width=8, height=8, tracer=name)
+    # Every tracer of the JAX package is ported; an unknown name raises.
+    for name in ("brute", "bvh", "cluster", "pallas"):
+        assert RenderConfig(width=8, height=8, tracer=name).tracer == name
+    with pytest.raises(ValueError, match="unknown tracer"):
+        RenderConfig(width=8, height=8, tracer="nope")
 
 
 def test_renderer_defaults_to_the_card():

@@ -30,15 +30,16 @@ class RenderConfig:
       bounces: path depth.
       tracer: intersection backend:
         - "brute": exhaustive torch ray x primitive tests (the oracle)
+        - "bvh", "cluster": the bounce loop over the cluster LBVH
+          (``ops/traverse.py``): on the card the closest-hit kernel, on
+          the CPU the JAX package's per-ray stack traversal and sorted
+          cluster sweep
         - "pallas": the hand-written CUDA kernels (plain torch on CPU)
-        "bvh" and "cluster" (``ops/traverse.py``) are not ported yet and
-        raise ``NotImplementedError`` (ROADMAP queue 1, "the bvh and cluster
-        tracers").
       ray_chunk: rays per brute-force chunk (bounds peak memory).
       cluster_size: triangles per LBVH leaf cluster.
       wavefront: park dead rays far outside the scene between bounces.
-      max_traversal_steps: read only by the "bvh"/"cluster" tracers, so it
-        has no effect until they are ported (same ROADMAP item).
+      max_traversal_steps: accepted for config parity and read by neither
+        package (the JAX package declares it and never reads it).
       sky_rgbe: one stochastic RGBE sky tap per ray (else bilinear float sky).
       sky_mxu: route the RGBE tap through the env kernel
         (``ops/cuda_env.py``), bit-identical to the plain gather.
@@ -90,11 +91,7 @@ class RenderConfig:
     rng_impl: str = "threefry2x32"
 
     def __post_init__(self):
-        if self.tracer in ("bvh", "cluster"):
-            raise NotImplementedError(
-                f"tracer {self.tracer!r} is not ported yet (ROADMAP queue 1: "
-                "the bvh and cluster tracers, ops/traverse.py)")
-        if self.tracer not in ("brute", "pallas"):
+        if self.tracer not in ("brute", "bvh", "cluster", "pallas"):
             raise ValueError(f"unknown tracer {self.tracer!r}")
         if self.rng_impl != "threefry2x32":
             raise ValueError(

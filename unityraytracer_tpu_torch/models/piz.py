@@ -8,11 +8,10 @@ implementation's documented algorithms (ImfPizCompressor / ImfWav / ImfHuf):
 decode:  Huffman -> per-channel 2D Haar-style wavelet inverse -> LUT
 encode:  bitmap/LUT -> per-channel wavelet forward -> Huffman
 
-All stages are numpy-vectorized except the Huffman symbol loops, which are
-pure Python: fine for tests and moderate images, slow on a 4K map. The JAX
-package has a C++ fast path for the decode loop in its native host library;
-the port takes the Python path only until that library is ported (ROADMAP
-queue 1, "the native host library").
+All stages are numpy-vectorized except the Huffman symbol loops. The
+decode loop runs in the native host library (``native.huf_decode``,
+``csrc/piz.cpp``) where it builds, and in Python otherwise (slow on a 4K
+map); the encode loop is Python.
 
 Wire-format details implemented here (needed to read real files):
 * chunk = u16 minNonZero, u16 maxNonZero, bitmap bytes in that range,
@@ -375,8 +374,10 @@ def huf_decompress(blob: bytes, n_out: int) -> np.ndarray:
     if n_bits > (len(blob) - pos) * 8:
         raise ValueError("truncated huffman data")
 
-    # The Python decode loop only: the C++ huf_decode fast path belongs to
-    # the native host library (ROADMAP queue 1, "the native host library").
+    from .. import native
+    got = native.huf_decode(blob, pos, n_bits, lengths, iM, n_out)
+    if got is not None:
+        return got
     codes = _canonical_codes(lengths)
     return _huf_decode_py(blob, pos, n_bits, lengths, codes, iM, n_out)
 

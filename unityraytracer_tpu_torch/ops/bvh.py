@@ -1,10 +1,10 @@
 """LBVH acceleration structure: Morton sort + Karras radix tree over
 triangle clusters (host numpy).
 
-The port of the JAX package's ``ops/bvh.py`` with its numpy radix tree (the
-native C++ builder is not ported yet; at 100k triangles and 64-triangle
-clusters the tree has about 1.6k leaves, which numpy builds quickly). The
-arrays are equal to the JAX builder's. The CUDA kernels traverse this
+The port of the JAX package's ``ops/bvh.py``. The radix tree comes from the
+native host library (``native.py``, ``csrc/lbvh.cpp``) where it builds, else
+from the numpy builder here; both give the same tree, and the arrays are
+equal to the JAX builder's. The CUDA kernels traverse this
 structure straight from device memory (``ClusterAccel.to``).
 
 Node layout: internal nodes 0..C-2, leaf nodes C-1..2C-2 (leaf k at C-1+k).
@@ -133,10 +133,12 @@ def _internal_aabbs(left, right, leaf_vmin, leaf_vmax):
     return vmin, vmax
 
 
-def build_cluster_accel(triangles: Triangles,
-                        cluster_size: int = 64) -> ClusterAccel:
+def build_cluster_accel(triangles: Triangles, cluster_size: int = 64,
+                        use_native: bool = True) -> ClusterAccel:
     """Build the LBVH + cluster structure from world-space triangles
-    (numpy arrays or tensors on any device; the build runs on the host)."""
+    (numpy arrays or tensors on any device; the build runs on the host).
+    ``use_native`` takes the radix tree from the native library when it is
+    available (the numpy builder otherwise)."""
     def host(a):
         return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
@@ -204,7 +206,11 @@ def build_cluster_accel(triangles: Triangles,
     mids = mids[tri_perm]
 
     if C > 1:
-        left, right = _radix_tree(keys_sorted)
+        tree = None
+        if use_native:
+            from .. import native
+            tree = native.radix_tree(keys_sorted)
+        left, right = tree if tree is not None else _radix_tree(keys_sorted)
         node_vmin, node_vmax = _internal_aabbs(left, right, cl_vmin, cl_vmax)
         node_left = np.concatenate([left, np.full(C, -1, np.int32)])
         node_right = np.concatenate([right, np.full(C, -1, np.int32)])
@@ -225,7 +231,8 @@ def build_cluster_accel(triangles: Triangles,
 
 def build_accel(scene: Scene, cfg):
     """The acceleration structure a config's tracer needs: the ClusterAccel
-    for tracer="pallas" (the CUDA kernels traverse it), None for "brute"."""
+    for "bvh", "cluster" and "pallas" (the CUDA kernels traverse it), None
+    for "brute"."""
     if cfg.tracer == "brute":
         return None
     return build_cluster_accel(scene.triangles, cluster_size=cfg.cluster_size)

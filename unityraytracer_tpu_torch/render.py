@@ -3,8 +3,9 @@
 The port of the JAX package's ``render.py``:
 
 * ``render_sample``: one frame of ``spp`` jittered camera rays per pixel,
-  bounced ``bounces`` times through a tracer (``"brute"`` or the
-  closest-hit kernel), with wavefront parking and Russian roulette.
+  bounced ``bounces`` times through a tracer (``"brute"``, or the accel
+  tracers of ``ops/traverse.py``: the closest-hit kernel on the card), with
+  wavefront parking and Russian roulette.
 * ``render_sample_mega``: the same frame through the path kernel — every
   bounce in one launch, fed camera rays that ``_camera_rays`` makes from the
   frame key in one launch of the camera-ray kernel and the same uniform
@@ -47,10 +48,11 @@ from .camera import Camera, camera_rays_soa
 from .config import RenderConfig
 from .ops import vec as vec_ops
 from .ops import trace as trace_ops
+from .ops import traverse
 from .ops.bvh import ClusterAccel, build_accel
 from .ops.cuda_env import sky_tap
 from .ops.cuda_path import path_trace
-from .ops.cuda_trace import KernelScene, make_pallas_tracer
+from .ops.cuda_trace import KernelScene
 from .ops.sampling import sample_unit_disk
 from .ops.shade import MISS_T, sample_skybox, sample_skybox_rgbe, shade
 from .scene import Scene
@@ -86,12 +88,14 @@ def _scene_device(scene: Scene) -> torch.device:
 
 
 def get_tracer(scene: Scene, cfg: RenderConfig, accel=None) -> Callable:
-    """Resolve cfg.tracer to a ``fn(ro, rd, alive, bin_rays) -> Hit``."""
+    """Resolve cfg.tracer to a ``fn(ro, rd, alive, bin_rays) -> Hit``: the
+    brute oracle, or ``traverse.make_accel_tracer`` over the accel (built
+    here when none is given)."""
     if cfg.tracer == "brute":
         return trace_ops.make_brute_tracer(scene, chunk=cfg.ray_chunk)
     if accel is None:
         accel = build_accel(scene, cfg)
-    return make_pallas_tracer(scene, accel)
+    return traverse.make_accel_tracer(scene, accel, cfg)
 
 
 def _uniform(key, n: int, device):
@@ -571,7 +575,8 @@ def render_sample_mega(scene: Scene, accel, camera: Camera, key,
 def render_frame(scene: Scene, cfg: RenderConfig, camera: Camera, key,
                  accel=None, row0: int = 0, rows: Optional[int] = None):
     """One sample frame via the best path for cfg: the path kernel for
-    tracer="pallas" with megakernel, the bounce loop otherwise.
+    tracer="pallas" with megakernel, the bounce loop otherwise. Every tracer
+    but "brute" traces the scene's accel, built here when none is given.
 
     With ``cfg.spp_chunk`` below ``cfg.spp`` the frame is the spp-weighted
     sum of sub-frames of ``spp_chunk`` samples at ``fold_in(key, i)`` and a
@@ -579,7 +584,7 @@ def render_frame(scene: Scene, cfg: RenderConfig, camera: Camera, key,
     other: only the running image outlives a sub-frame, not its rays or
     uniform rows. Chunking sits above the tracer dispatch, so it applies to
     every tracer."""
-    if cfg.tracer == "pallas" and accel is None:
+    if cfg.tracer != "brute" and accel is None:
         accel = build_accel(scene, cfg)
     if isinstance(accel, ClusterAccel):
         accel = KernelScene.create(scene, accel)
@@ -640,10 +645,10 @@ def render_aovs(scene: Scene, cfg: RenderConfig, camera: Camera,
                 accel=None) -> dict:
     """First-hit G-buffer at pixel centres: ``aov_buffers`` of one trace of
     ``pixel_center_rays``, as tensors on the scene's device. No random
-    numbers, so every tracer gives the same buffers; with
-    ``tracer="pallas"`` on the card it is one launch of the closest-hit
-    kernel on H*W rays. The guides of the guided a-trous denoiser and the
-    AOV export (``Renderer.save_aovs``)."""
+    numbers, so every tracer gives the same buffers; with any tracer but
+    "brute" on the card it is one launch of the closest-hit kernel on H*W
+    rays (the accel is built when none is given). The guides of the guided
+    a-trous denoiser and the AOV export (``Renderer.save_aovs``)."""
     H, W = cfg.height, cfg.width
     device = _scene_device(scene)
     ro, rd = pixel_center_rays(camera, H, W, device)
