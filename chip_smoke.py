@@ -140,9 +140,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
       float sky with and without it (equal, both times), then ``render
       --env`` on that sky.
 
+10. the ray sort (``ray_bin_bounces``, default (1, 2), and ``bin_rays``;
+   ``ray_sort_phase``), sorted against unsorted (``(None, None)``):
+   a. the path kernel's nine rows and counts at 192x96 x 4 and 1080p x 8
+      and its 16 state rows after two bounces, all bit-equal; its times in
+      10 pairs in turns;
+   b. the closest-hit kernel on the 1080p bounce-1 rays (from
+      ``path_trace(..., nb=1, emit_state=True)``): 14 rows, winner and
+      counts bit-equal, its trace order equal to ``bin_destinations``', 10
+      pairs of times, the bin-sort-scatter prologue alone (the kernel
+      without its traversal);
+   c. the warps of those rays in ray order and in sorted order: the SIMT
+      efficiency of their box and triangle tests (the sum over warps of the
+      lanes' mean over the sum of their max) and the share of warps with no
+      live ray;
+   d. the split frame, a ``megakernel=False`` frame and a
+      ``ShardedRenderer(mode="scene")`` frame on ``[cuda:0] * 4``, each
+      bit-equal with the window on and off, with the same launches;
+   e. the main path, sorted and unsorted ``Renderer.step(1)`` in turns
+      (medians of 12 with their spreads), the same launches and device
+      events a frame, the accumulators bit-equal.
+
 Phase 3 also holds the path kernel's 16 resume-state rows against the plain
 version's (bit for bit, at 192x96 x 4 and on the 1080p x 8 subset with two
-bounces).
+bounces). Phases 3 to 9 run the default config, so the path kernel sorts
+at bounces 1 and 2 there.
 
 The line before the last is a JSON object with each kernel's launches in
 the run of the path that uses it (the main path for the path, sky-tap
@@ -166,7 +188,10 @@ SASS instructions: a kernel of one draw (or one expf) against a kernel of
 one copy, built with the kernels' flags and read with cuobjdump (phase 2);
 a draw's integer-ALU instructions at the ALU's rate, or all of them at the
 SM's issue rate, whichever is slower. The closest-hit and a-trous kernels' ``launches``
-are those of the preview run (7c). The last line is ``{"ok": true,
+are those of the preview run (7c). The path and closest-hit rows also carry
+phase 10's ``sort_window``, ``ms_binned``, ``ms_unbinned`` and
+``binned_bit_equal`` (the closest-hit kernel's on the bounce-1 rays, with
+``binned_shape``, ``sort_prologue_ms`` and ``order_equal``). The last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits non-zero and prints no
 result.
 """
@@ -174,6 +199,7 @@ result.
 import ctypes
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -1163,6 +1189,318 @@ def accel_shard_native_phase(counted, bits_equal, scene_np, accel_np, ks,
     return by_path
 
 
+def device_window(r, frames=3, names=None):
+    """(wall ms, device-busy ms, device events) of ``r.step(frames)`` under
+    torch.profiler: the union of the device intervals against the host's
+    clock (the profiler's own per-launch cost slows the host a little, so
+    the busy share errs low). ``names``: a dict that gets the count of the
+    device events by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # A window can miss the device events of its first frame when the
+        # frame starts as the profiler does; a pause first, outside the
+        # clock, narrows that.
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        r.step(frames)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if names is not None:
+        for e in events:
+            names[e.name] = names.get(e.name, 0) + 1
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, reach = 0.0, float("-inf")
+    for s, e in spans:
+        if e > reach:
+            busy_us += e - max(s, reach)
+            reach = e
+    return wall_ms, busy_us / 1e3, len(spans)
+
+
+def ray_sort_phase(counted, scene_np, accel_np, ks, cfg_s, kernels) -> dict:
+    """Phase 10: the ray sort of ``ray_bin_bounces`` (the path kernel) and
+    ``bin_rays`` (the closest-hit kernel) at the main path's shape: sorted
+    against unsorted bit for bit in every output and every path that sorts,
+    the closest-hit kernel's trace order against ``bin_destinations``, the
+    times of both in turns, the sort prologue alone, and what the sort does
+    to the warps of the bounce-1 rays. Adds
+    its numbers to the ``path`` and ``trace`` rows of ``kernels``; returns
+    the launch counts of its paths. Raises on any failure."""
+    import numpy as np
+    import torch
+
+    from unityraytracer_tpu_torch import RenderConfig, Renderer, _build, rng
+    from unityraytracer_tpu_torch.models import fixtures
+    from unityraytracer_tpu_torch.ops.cuda_path import path_trace
+    from unityraytracer_tpu_torch.ops.cuda_trace import (
+        SORT_WINDOW, bin_destinations, launch_trace, ray_bin_ids, trace_hits)
+    from unityraytracer_tpu_torch.parallel.sharding import (ShardedRenderer,
+                                                            make_mesh)
+    from unityraytracer_tpu_torch.render import _frame_inputs, render_frame
+
+    t_phase = time.perf_counter()
+    dev = ks.device
+    scene = ks.scene
+    W, H = MAIN["width"], MAIN["height"]
+    cam_main = fixtures.bench_camera(aspect=W / H)
+    cam_small = fixtures.bench_camera(aspect=2.0)
+    cfg_m = RenderConfig(**MAIN)
+    if cfg_m.ray_bin_bounces != (1, 2):
+        raise AssertionError(f"the main path's window is "
+                             f"{cfg_m.ray_bin_bounces}, not the JAX (1, 2)")
+
+    def off(cfg):
+        return cfg.replace(ray_bin_bounces=(None, None))
+
+    def equal(a, b):
+        a = torch.stack(a) if isinstance(a, tuple) else a
+        b = torch.stack(b) if isinstance(b, tuple) else b
+        if a.is_floating_point():
+            a, b = (x.contiguous().view(torch.int32) for x in (a, b))
+        return a.shape == b.shape and torch.equal(a, b)
+
+    def all_equal(xs, ys):
+        return all(equal(a, b) for a, b in zip(xs, ys))
+
+    checks, by_path = {}, {}
+
+    def check(tag, ok):
+        checks[tag] = bool(ok)
+        log(f"10 sorted vs unsorted, {tag}: bit-equal {bool(ok)}")
+
+    # 10a. The path kernel: nine rows and counts at 192x96 x 4 and 1080p x
+    # 8; the 16 state rows after two bounces.
+    def path_pair(cfg, cam, key, nb=None, state=False):
+        ro, rd, uni, _, _ = _frame_inputs(scene, cam, key, cfg)
+        uni = uni if nb is None else uni[:nb]
+        outs = []
+        for c in (cfg, off(cfg)):
+            cnt = torch.zeros((2, ro[0].shape[0]), dtype=torch.int32,
+                              device=dev)
+            outs.append(path_trace(ks, ro, rd, uni, c, nb=nb,
+                                   emit_state=state, counts=cnt) + (cnt,))
+        _build.raise_on_overflow(dev)
+        return all_equal(*outs), ro, rd, uni
+
+    check("path kernel 192x96 x 4, 9 rows + counts",
+          path_pair(cfg_s, cam_small, rng.key(7))[0])
+    ok, rom, rdm, unim = path_pair(cfg_m, cam_main, rng.key(8))
+    check("path kernel 1080p x 8, 9 rows + counts", ok)
+    check("path kernel 1080p, nb=2, 16 state rows + 9 rows + counts",
+          path_pair(cfg_m, cam_main, rng.key(8), nb=2, state=True)[0])
+    pairs = {"sorted": [], "unsorted": []}
+    for _ in range(10):
+        pairs["sorted"].append(cuda_ms(
+            lambda: path_trace(ks, rom, rdm, unim, cfg_m), 3, 0))
+        pairs["unsorted"].append(cuda_ms(
+            lambda: path_trace(ks, rom, rdm, unim, off(cfg_m)), 3, 0))
+    path_ms = {k: float(np.median(v)) for k, v in pairs.items()}
+    log(f"10a path kernel 1080p x 8, 10 pairs in turns (window "
+        f"{SORT_WINDOW}): sorted median "
+        f"{path_ms['sorted']:.4f} ms (min {min(pairs['sorted']):.4f}, max "
+        f"{max(pairs['sorted']):.4f}), unsorted median "
+        f"{path_ms['unsorted']:.4f} (min {min(pairs['unsorted']):.4f}, max "
+        f"{max(pairs['unsorted']):.4f})")
+
+    # 10b. The closest-hit kernel on the 1080p bounce-1 rays: rows, prim
+    # and counts, and its trace order against bin_destinations on the card.
+    *_, st = path_trace(ks, rom, rdm, unim[:1], cfg_m, nb=1, emit_state=True)
+    o1, d1, a1 = tuple(st[0:3]), tuple(st[3:6]), st[9] > 0
+    del rom, rdm, unim, st
+    n1 = o1[0].shape[0]
+    order = torch.full((n1,), -1, dtype=torch.int32, device=dev)
+    cnt_s = torch.zeros((2, n1), dtype=torch.int32, device=dev)
+    cnt_u = torch.zeros((2, n1), dtype=torch.int32, device=dev)
+    hs = trace_hits(ks, o1, d1, a1, counts=cnt_s, bin_rays=True, order=order)
+    hu = trace_hits(ks, o1, d1, a1, counts=cnt_u)
+    _build.raise_on_overflow(dev)
+
+    def rows(h):
+        return [h.t, *h.normal, *h.albedo, *h.specular, *h.emission,
+                h.smoothness, h.prim]
+
+    check(f"closest-hit kernel, {n1} bounce-1 rays, 14 rows + prim + counts",
+          all_equal(rows(hs) + [cnt_s], rows(hu) + [cnt_u]))
+    want = bin_destinations(ray_bin_ids(o1, d1, a1, ks.bin_center))
+    check("closest-hit kernel's trace order vs bin_destinations",
+          torch.equal(order, want))
+    del hs, hu
+    tpairs = {"sorted": [], "unsorted": []}
+    for _ in range(10):
+        tpairs["sorted"].append(cuda_ms(
+            lambda: trace_hits(ks, o1, d1, a1, bin_rays=True), 3, 0))
+        tpairs["unsorted"].append(cuda_ms(
+            lambda: trace_hits(ks, o1, d1, a1), 3, 0))
+    trace_ms = {k: float(np.median(v)) for k, v in tpairs.items()}
+    prologue_ms = float(np.median([cuda_ms(
+        lambda: launch_trace(ks, o1, d1, a1, mode=2), 3, 0)
+        for _ in range(5)]))
+    log(f"10b closest-hit kernel, bounce-1 rays (alive "
+        f"{float(a1.float().mean()):.4f}), 10 pairs in turns: sorted median "
+        f"{trace_ms['sorted']:.4f} ms (min {min(tpairs['sorted']):.4f}, max "
+        f"{max(tpairs['sorted']):.4f}), unsorted {trace_ms['unsorted']:.4f} "
+        f"(min {min(tpairs['unsorted']):.4f}, max "
+        f"{max(tpairs['unsorted']):.4f}); the bin, sort and scatter prologue "
+        f"alone (no traversal) {prologue_ms:.4f} ms")
+
+    # 10c. What the sort does to the warps of the bounce-1 rays: SIMT
+    # efficiency of the box tests (sum over warps of the lanes' mean over
+    # sum over warps of their max; a warp is 32 consecutive slots) and the
+    # share of warps with no live ray, in ray order and in sorted order.
+    if n1 % 32:
+        raise AssertionError(f"{n1} rays do not fill whole warps")
+    ar = torch.arange(n1, device=dev)
+    slot = ar - ar % SORT_WINDOW + want.long()
+
+    def warps(v, permute):
+        v = v.float()
+        if permute:
+            v = torch.empty_like(v).scatter_(0, slot, v)
+        return v.reshape(-1, 32)
+
+    simt = {}
+    for tag, permute in (("ray order", False), ("sorted order", True)):
+        box, tri = warps(cnt_u[0], permute), warps(cnt_u[1], permute)
+        live = warps(a1, permute) > 0
+        simt[tag] = dict(
+            box_simt=float(box.mean(1).sum() / box.amax(1).sum()),
+            tri_simt=float(tri.mean(1).sum() / tri.amax(1).sum()),
+            dead_warp_share=float((~live.any(1)).float().mean()),
+            part_dead_warp_share=float((live.any(1) & ~live.all(1))
+                                       .float().mean()))
+        log(f"10c warps of the bounce-1 rays, {tag}: " + json.dumps(
+            simt[tag]))
+    del o1, d1, a1, cnt_s, cnt_u, order, want, slot, ar
+
+    # 10d. Frames: the split frame, a megakernel=False frame and a
+    # scene-sharded frame on four logical shards, each with the window on
+    # and off.
+    key = rng.key(21)
+    split = cfg_m.replace(**SPLIT)
+    check("split frame (split_bounce=2), 1080p x 8",
+          equal(render_frame(scene, split, cam_main, key, ks),
+                render_frame(scene, off(split), cam_main, key, ks)))
+    def in_turns(renderers, frames=4):
+        """ms/frame of ``frames`` step(1) each, the renderers in turns."""
+        ms = [[] for _ in renderers]
+        for _ in range(frames):
+            for k, r in enumerate(renderers):
+                r.step(1)
+                ms[k].append(r.stats["ms_per_frame"])
+        return [float(np.median(m)) for m in ms], ms
+
+    loops = []
+    for c in (cfg_m, off(cfg_m)):
+        c = c.replace(megakernel=False)
+        r, la = counted(lambda: Renderer(scene_np, cam_main, c,
+                                         accel=accel_np, seed=0,
+                                         device=dev).step(1))
+        loops.append(r)
+        by_path["loop_sorted" if c.ray_bin_bounces[0] is not None
+                else "loop_unsorted"] = la
+    check("megakernel=False frame, 1080p x 8",
+          equal(*(r.state.accum for r in loops)))
+    shards = []
+    for c in (cfg_m, off(cfg_m)):
+        sr, la = counted(lambda: ShardedRenderer(
+            scene_np, cam_main, c, mesh=make_mesh([dev] * 4), seed=5,
+            mode="scene").step(1))
+        shards.append(sr)
+        by_path["scene_sorted" if c.ray_bin_bounces[0] is not None
+                else "scene_unsorted"] = la
+    check("ShardedRenderer(mode='scene') frame on 4 logical shards",
+          equal(*(torch.from_numpy(sr.image) for sr in shards)))
+    for tag, rs_ in (("megakernel=False", loops), ("scene, 4 shards",
+                                                   shards)):
+        med, ms = in_turns(rs_)
+        log(f"10d {tag} 1080p x 8, 4 step(1) each in turns: sorted median "
+            f"{med[0]:.2f} ms/frame {[round(x, 2) for x in ms[0]]}, "
+            f"unsorted {med[1]:.2f} {[round(x, 2) for x in ms[1]]}")
+    del loops, shards, sr
+    if by_path["loop_sorted"] != by_path["loop_unsorted"] or \
+            by_path["scene_sorted"] != by_path["scene_unsorted"]:
+        raise AssertionError(f"10d: the sort changed the launches: {by_path}")
+
+    # 10e. The main path, sorted and unsorted Renderer.step(1) in turns,
+    # with their launches and device events a frame.
+    rs = Renderer(scene_np, cam_main, cfg_m, accel=accel_np, seed=0,
+                  device=dev)
+    ru = Renderer(scene_np, cam_main, off(cfg_m), accel=accel_np, seed=0,
+                  device=dev)
+    rs.step(1)
+    ru.step(1)
+    frame = {"sorted": [], "unsorted": []}
+    launches = {}
+    for _ in range(12):
+        for tag, r in (("sorted", rs), ("unsorted", ru)):
+            _, launches[tag] = counted(lambda: r.step(1))
+            frame[tag].append(r.stats["ms_per_frame"])
+    # Two profiled windows each, in turns; the fuller of the two counts (a
+    # window can still miss its first frame's device events: it then shows
+    # 2 of each kernel for 3 frames). The launch counts are what must be
+    # equal; the device events are read and compared, not required equal.
+    events, names = {}, {}
+    for _ in range(2):
+        for tag, r in (("sorted", rs), ("unsorted", ru)):
+            by_name = {}
+            w = device_window(r, names=by_name)
+            if tag not in events or w[2] > events[tag][2]:
+                events[tag], names[tag] = w, by_name
+
+    def kinds(by_name):
+        """Events by kernel, the two path kernels under one name."""
+        out = {}
+        for k, v in by_name.items():
+            k = "urt_path" if "urt_path" in k else \
+                re.sub(r"\(.*", "", k).replace("void ", "")[:48]
+            out[k] = out.get(k, 0) + v
+        return out
+
+    check("main path accumulators after 19 frames",
+          equal(rs.state.accum, ru.state.accum))
+    for tag in frame:
+        wall, busy, ev = events[tag]
+        v = frame[tag]
+        log(f"10e main path 1080p x 8, {tag}: {float(np.median(v)):.3f} "
+            f"ms/frame median of 12 in turns (min {min(v):.3f}, max "
+            f"{max(v):.3f}); launches a step {launches[tag]}; profiled 3 "
+            f"frames: wall {wall:.3f} ms, busy {busy:.3f} ms, "
+            f"{ev / 3:.1f} device events a frame, busy share "
+            f"{busy / wall:.4f}; events by kernel "
+            f"{json.dumps(kinds(names[tag]))}")
+    log(f"10e device events by kernel equal, sorted and unsorted: "
+        f"{kinds(names['sorted']) == kinds(names['unsorted'])}")
+    if launches["sorted"] != launches["unsorted"]:
+        raise AssertionError(f"10e: the sort changed the launches: "
+                             f"{launches}")
+    by_path["main_sorted"] = launches["sorted"]
+    del rs, ru
+    if not all(checks.values()):
+        raise AssertionError(f"10: sorted and unsorted differ: {checks}")
+
+    kernels["path"].update(
+        sort_window=SORT_WINDOW,
+        ms_binned=path_ms["sorted"], ms_unbinned=path_ms["unsorted"],
+        binned_bit_equal=all(v for k, v in checks.items()
+                             if not k.startswith("closest")))
+    kernels["trace"].update(
+        sort_window=SORT_WINDOW, binned_shape=[n1],
+        ms_binned=trace_ms["sorted"], ms_unbinned=trace_ms["unsorted"],
+        sort_prologue_ms=prologue_ms,
+        binned_bit_equal=checks[f"closest-hit kernel, {n1} bounce-1 rays, "
+                                "14 rows + prim + counts"],
+        order_equal=checks["closest-hit kernel's trace order vs "
+                           "bin_destinations"],
+        simt_bounce1=simt)
+    log(f"10 ray sort phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1782,28 +2120,14 @@ def main() -> int:
     del ro, rd, uni, rad, se, sd, scratch
 
     # Device busy share: wall time and device time of one window of three
-    # main-path frames, both read under torch.profiler (whose own per-launch
-    # cost slows the host a little, so the share errs low).
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r.step(3)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in
-                   prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, reach = 0.0, float("-inf")
-    for s, e in spans:                   # union of the device intervals
-        if e > reach:
-            busy_us += e - max(s, reach)
-            reach = e
+    # main-path frames, both read under torch.profiler.
+    wall_ms, busy_ms, n_events = device_window(r)
     log(f"profiled window: 3 frames, wall {wall_ms:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms over {len(spans)} device events "
-        f"({len(spans) / 3:.1f} a frame), busy share "
-        f"{busy_us / 1e3 / wall_ms:.4f}")
+        f"{busy_ms:.3f} ms over {n_events} device events "
+        f"({n_events / 3:.1f} a frame), busy share "
+        f"{busy_ms / wall_ms:.4f}")
     log(f"device launches a frame: before the camera-ray kernel "
-        f"{LAUNCHES_BEFORE} (PERF.md), now {len(spans) / 3:.1f}")
+        f"{LAUNCHES_BEFORE} (PERF.md), now {n_events / 3:.1f}")
 
     # 5. Oracle gate at 192x96 x 4 bounces, and the alive fraction at 8.
     key = rng.key(42)
@@ -2215,6 +2539,10 @@ def main() -> int:
                                             accel_np, ks, cfg_s, oracle,
                                             key))
 
+    # 10. The ray sort, sorted against unsorted.
+    by_path.update(ray_sort_phase(counted, scene_np, accel_np, ks, cfg_s,
+                                  kernels))
+
     for k in kernels:
         use = {"env_planes": "bf16", "trace": "preview",
                "atrous": "preview", "uniform": "loop"}.get(k, "main")
@@ -2231,7 +2559,9 @@ def main() -> int:
     keys = ("route", "source", "replaces", "launches",
             "launches_megakernel_false", "launches_by_path", "max_abs_err",
             "max_ulp", "ms", "host_ms", "call_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "shape", "plain_shape")
+            "bound_by", "library_ms", "shape", "plain_shape", "sort_window",
+            "ms_binned", "ms_unbinned", "binned_bit_equal", "binned_shape",
+            "sort_prologue_ms", "order_equal", "simt_bounce1")
     for v in kernels.values():
         v["library_ms"] = None     # no single PyTorch call computes these
     log(json.dumps({"kernels": [

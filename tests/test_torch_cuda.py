@@ -24,7 +24,11 @@ sub-frames to rtol 1e-4, atol 5e-5. The a-trous kernel runs its plain
 version's float32 operations in the same order with IEEE rounding, and
 both take exp from the CUDA math library, so it is held to ATROUS_ULP ulp
 (0: bit for bit) at every level; the AOVs through the closest-hit kernel
-equal their plain route's where both hit the same primitive."""
+equal their plain route's where both hit the same primitive. The ray sort
+(``ray_bin_bounces``, ``bin_rays``) reorders rays whose hits and shading do
+not depend on their order, so every sorted kernel is bit-equal to its
+unsorted launch, counts included, and the closest-hit kernel's trace order
+is ``bin_destinations``'."""
 
 from pathlib import Path
 
@@ -38,10 +42,12 @@ from unityraytracer_tpu_torch.models import fixtures
 from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
 from unityraytracer_tpu_torch.ops import cuda_env
 from unityraytracer_tpu_torch.ops.cuda_env import sky_tap, sky_tap_plain
-from unityraytracer_tpu_torch.ops.cuda_path import path_trace, path_trace_plain
-from unityraytracer_tpu_torch.ops.cuda_trace import (KernelScene,
+from unityraytracer_tpu_torch.ops.cuda_path import (path_trace,
+                                                    path_trace_plain)
+from unityraytracer_tpu_torch.ops.cuda_trace import (SORT_WINDOW, KernelScene,
+                                                     bin_destinations,
                                                      closest_hit_plain,
-                                                     trace_hits)
+                                                     ray_bin_ids, trace_hits)
 from unityraytracer_tpu_torch.render import (_camera_rays, aov_buffers,
                                              bounce_rows, bounce_rows_plain,
                                              camera_rays_plain, mega_inputs,
@@ -587,3 +593,86 @@ def test_native_library_builds_and_matches_numpy():
     b = build_cluster_accel(tris, 64, use_native=False)
     assert np.array_equal(a.node_left, b.node_left)
     assert np.array_equal(a.node_right, b.node_right)
+
+
+def _bits(x):
+    x = torch.stack(x) if isinstance(x, tuple) else x
+    return x.contiguous().view(torch.int32)
+
+
+def test_path_kernel_sorted_bit_equal(dev):
+    cfg = RenderConfig(width=64, height=48, bounces=6, tracer="pallas",
+                       rr_group="step")
+    _, ks, _, (ro, rd, uni, _, _, _) = _scene1_rays(dev, cfg, 7)
+    n = 3000     # not a multiple of the window
+    ro, rd = tuple(c[:n] for c in ro), tuple(c[:n] for c in rd)
+    uni = uni[:, :, :n].contiguous()
+    *_, st = path_trace(ks, ro, rd, uni[:2], cfg, nb=2, emit_state=True)
+    resume = dict(b0=2, nb=4, energy0=tuple(st[6:9]), alive0=st[9])
+    cases = [((1, 2), ro, rd, uni, {}), ((0, 7), ro, rd, uni, {}),
+             ((1, 2), ro, rd, uni[:2], dict(nb=2)),
+             ((1, 2), tuple(st[0:3]), tuple(st[3:6]), uni[2:], resume),
+             ((3, 4), tuple(st[0:3]), tuple(st[3:6]), uni[2:], resume)]
+    for win, o, d, u, kw in cases:
+        outs = []
+        for w in (win, (None, None)):
+            cnt = torch.empty((2, n), dtype=torch.int32, device=dev)
+            outs.append(path_trace(ks, o, d, u,
+                                   cfg.replace(ray_bin_bounces=w),
+                                   emit_state=True, counts=cnt, **kw)
+                        + (cnt,))
+        _build.raise_on_overflow(dev)
+        for a, b in zip(*outs):
+            assert torch.equal(_bits(a), _bits(b)), (win, kw)
+
+
+def test_sorted_launches_take_only_their_window(dev):
+    # With no rays the entry points check their arguments and launch
+    # nothing, so no pointer is read.
+    lib = _build.lib()
+    for w, want_ok in ((SORT_WINDOW, True), (256, False), (1024, False)):
+        trace = lib.urt_trace_hits(None, *[None] * 7, 0, 1, w, None, None)
+        path = lib.urt_path_trace(None, *[None] * 8, 0, 0, 1, 1, 0, 1, 2, w,
+                                  None, None)
+        assert (trace == 0, path == 0) == (want_ok, want_ok), (w, trace, path)
+
+
+def test_trace_kernel_sorted_bit_equal(dev):
+    s = fixtures.bench_scene(2000)
+    ks = KernelScene.create(s, build_cluster_accel(s.triangles, 64), dev)
+    n = 20_000
+    ro, rd = _rays(dev, n, 4)
+    alive = torch.arange(n, device=dev) % 5 != 0
+    outs = []
+    order = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for sort in (True, False):
+        cnt = torch.empty((2, n), dtype=torch.int32, device=dev)
+        h = trace_hits(ks, ro, rd, alive, counts=cnt, bin_rays=sort,
+                       order=order if sort else None)
+        outs.append([h.t, *h.normal, *h.albedo, *h.specular, *h.emission,
+                     h.smoothness, *h.position, h.prim, cnt])
+    _build.raise_on_overflow(dev)
+    for a, b in zip(*outs):
+        assert torch.equal(a.contiguous().view(torch.int32)
+                           if a.dtype != torch.int64 else a,
+                           b.contiguous().view(torch.int32)
+                           if b.dtype != torch.int64 else b)
+    want = bin_destinations(ray_bin_ids(ro, rd, alive, ks.bin_center))
+    assert torch.equal(order, want)
+
+
+@pytest.mark.parametrize("mega", [True, False])
+def test_sorted_frame_matches_cpu_plain(dev, mega):
+    cfg = RenderConfig(width=64, height=48, spp=2, bounces=4, tracer="pallas",
+                       megakernel=mega, ray_bin_bounces=(1, 2))
+    cam = fixtures.scene1_camera(64 / 48)
+
+    def image(c, device):
+        return Renderer(fixtures.scene1(), cam, c, seed=123,
+                        device=device).step(2).image
+
+    card = image(cfg, "cuda")
+    assert rmse(card, image(cfg, "cpu")) < 1e-3
+    unsorted = image(cfg.replace(ray_bin_bounces=(None, None)), "cuda")
+    np.testing.assert_array_equal(card.view(np.uint32),
+                                  unsorted.view(np.uint32))

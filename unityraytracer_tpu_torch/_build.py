@@ -59,6 +59,8 @@ class SceneArgs(ctypes.Structure):
         ("tris", ctypes.c_void_p), ("tri_n0", ctypes.c_void_p),
         ("tri_n1", ctypes.c_void_p), ("tri_n2", ctypes.c_void_p),
         ("tri_mat", ctypes.c_void_p),
+        ("bin_cx", ctypes.c_float), ("bin_cy", ctypes.c_float),
+        ("bin_cz", ctypes.c_float),
     ]
 
 
@@ -162,9 +164,8 @@ def lib() -> ctypes.CDLL:
         so = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         u32 = ctypes.c_uint32
-        so.urt_trace_hits.argtypes = [p, p, p, p, p, p, p, i, p, p]
-        so.urt_path_trace.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                      i, p, p]
+        so.urt_trace_hits.argtypes = [p] * 8 + [i, i, i, p, p]
+        so.urt_path_trace.argtypes = [p] * 9 + [i] * 8 + [p, p]
         so.urt_sky_tap.argtypes = [p] * 10 + [i, p, i, i] + [u32] * 4 + [
             p, i, i, i, p]
         so.urt_uniform.argtypes = [u32, u32, p, ctypes.c_longlong, p]

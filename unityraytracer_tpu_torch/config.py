@@ -7,11 +7,11 @@ hand-written CUDA kernels (``ops/cuda_trace.py``, ``ops/cuda_path.py``),
 which run for CUDA tensors; for CPU tensors the same entry points run their
 plain PyTorch versions.
 
-``split_bounce``/``split_frac``, ``spp_chunk`` and ``dispatch_bands`` keep
-the JAX package's meanings. ``ray_bin_bounces`` only changes speed in the
-JAX package (its coherence sort is bit-identical), and is accepted and
-ignored here until the GPU ray sort lands (ROADMAP queue 1, "a GPU ray sort
-for ``ray_bin_bounces``"): the CUDA kernels trace rays in their given order.
+``split_bounce``/``split_frac``, ``spp_chunk``, ``dispatch_bands`` and
+``ray_bin_bounces`` keep the JAX package's meanings. ``ray_bin_bounces``
+changes speed only: at those bounces the kernels sort each thread block's
+rays by direction octant and origin cell before tracing them
+(``ops/cuda_trace.SORT_WINDOW``), and the results are the same bits.
 """
 
 from __future__ import annotations
@@ -44,8 +44,11 @@ class RenderConfig:
       sky_mxu: route the RGBE tap through the env kernel
         (``ops/cuda_env.py``), bit-identical to the plain gather.
       russian_roulette: unbiased RR from bounce 3 (2 <= b < bounces - 1).
-      ray_bin_bounces: accepted for config parity; no effect until the GPU
-        ray sort is ported (ROADMAP queue 1), and none on results after it.
+      ray_bin_bounces: inclusive window of global bounces at which the
+        "pallas" tracer sorts its rays by direction octant and origin cell
+        (dead rays last) before tracing them, in the path kernel and in
+        the closest-hit kernel of the bounce loop; (None, None), or a None
+        end, sorts nothing. No effect on results.
       rr_group: "ray" (one RR draw per ray) or "step" (one per 8x128 pixels).
       megakernel: with tracer="pallas", run every bounce in one path-kernel
         launch; False runs the bounce loop on the closest-hit kernel.

@@ -34,12 +34,16 @@
 //     e2 = v2 - v0, instead of nine scalar loads.
 // A box test is conservative (below), so no run holding a hit that can win
 // is culled, and the tie rule does not depend on visiting order: the winner
-// stays the exhaustive plain version's, bit for bit. Not done here (ROADMAP):
-// persistent threads, ray sorting, wide BVHs.
+// stays the exhaustive plain version's, bit for bit. The ray coherence sort
+// (ray_sort.cuh) lives in the kernels around this function: trace_kernel.cu
+// with bin_rays, path_kernel.cu at the bounces of ray_bin_bounces. Not done
+// (ROADMAP): persistent threads, wide BVHs.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "ray_sort.cuh"
 
 #define URT_F32_MAX 3.402823466e+38f
 #define URT_STACK 64
@@ -75,6 +79,9 @@ struct SceneArgs {
   const float* tri_n1;
   const float* tri_n2;
   const int* tri_mat;         // (C*S,)
+  float bin_cx;               // centre of the scene's triangle bounds, the
+  float bin_cy;               // origin-cell split of the ray sort
+  float bin_cz;               // (ray_sort.cuh)
 };
 
 struct HitRec {

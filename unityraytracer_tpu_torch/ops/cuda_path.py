@@ -9,6 +9,11 @@ Vec3 of (N,), the five uniform rows per bounce (roulette, log2 u1,
 cos 2 pi u2, sin 2 pi u2, RR), and (radiance, sky throughput, sky direction)
 as Vec3 of (N,); with ``emit_state`` also the packed (16, N) resume state
 that the bounce split (``render._path_trace_split``) gathers.
+
+At each global bounce in ``cfg.ray_bin_bounces`` both versions trace the
+rays in their sorted order (``cuda_trace.sort_slots``, windows of
+``SORT_WINDOW`` rays, the kernel's thread block), as the JAX kernel does;
+the results are the same bits with the sort on or off.
 """
 
 from __future__ import annotations
@@ -20,8 +25,8 @@ import torch
 
 from .. import _build
 from . import vec
-from .cuda_trace import (KernelScene, _check_rays, check_counts,
-                         closest_hit_plain)
+from .cuda_trace import (SORT_WINDOW, KernelScene, _check_rays,
+                         check_counts, closest_hit_plain)
 from .vec import Vec3
 
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -29,11 +34,20 @@ MISS = 1.0e30
 _LOG2_1000 = float(np.float32(np.log2(1000.0)))
 
 
+def sort_bounces(cfg):
+    """The inclusive global bounce window of ``cfg.ray_bin_bounces``, or
+    None: a window with a None end sorts nothing
+    (``pallas_path.py:424-428``)."""
+    lo, hi = cfg.ray_bin_bounces
+    return None if lo is None or hi is None else (lo, hi)
+
+
 def path_trace_plain(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
                      b0: int = 0, nb: int = None, energy0=None, alive0=None,
                      emit_state: bool = False):
     """Plain torch version of the path kernel (see ``path_trace``)."""
     nb = cfg.bounces if nb is None else nb
+    window_b = sort_bounces(cfg)
     like = ro[0]
     one = torch.ones_like(like)
     zero = torch.zeros_like(like)
@@ -45,7 +59,9 @@ def path_trace_plain(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
     for lb in range(nb):
         bg = b0 + lb
         u_r, log2_u1, cos_phi, sin_phi, u_rr = uni[lb]
-        hit = closest_hit_plain(ks, ro, rd, alive)     # dead rays: t = INF
+        sort = window_b is not None and window_b[0] <= bg <= window_b[1]
+        hit = closest_hit_plain(ks, ro, rd, alive,
+                                bin_rays=sort)  # dead rays: t = INF
         t = torch.where(hit.t >= _F32_MAX * 0.5, MISS * 1.5, hit.t)
         missed = t >= MISS
         n = hit.normal
@@ -132,8 +148,19 @@ def path_trace(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
     tensor that the kernel fills with each ray's box and triangle tests over
     its bounces (None on the main path). The CUDA kernel runs for CUDA
     tensors, the plain version for CPU tensors. A traversal overflow raises
-    at the next ``_build.raise_on_overflow``."""
+    at the next ``_build.raise_on_overflow``.
+
+    The global bounces ``b0 + lb`` in ``cfg.ray_bin_bounces`` trace each
+    window of ``SORT_WINDOW`` rays in its sorted order; a launch none of
+    whose bounces lies in the window is the unsorted kernel, with no block
+    barrier."""
     nb = cfg.bounces if nb is None else nb
+    # The sorted global bounces of this launch (lo = -1: none).
+    wb = sort_bounces(cfg)
+    lo, hi = (-1, -1) if wb is None else (max(wb[0], b0),
+                                          min(wb[1], b0 + nb - 1))
+    if lo > hi:
+        lo = hi = -1
     if ro[0].device.type == "cpu":
         return path_trace_plain(ks, ro, rd, uni, cfg, b0=b0, nb=nb,
                                 energy0=energy0, alive0=alive0,
@@ -163,8 +190,8 @@ def path_trace(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
         uni.data_ptr(), out.data_ptr(),
         state.data_ptr() if emit_state else None,
         check_counts(ks, counts, n), n, b0, nb, cfg.bounces,
-        int(cfg.russian_roulette), _build.error_flag(ks.device).data_ptr(),
-        _build.stream_ptr(ks.device))
+        int(cfg.russian_roulette), lo, hi, SORT_WINDOW,
+        _build.error_flag(ks.device).data_ptr(), _build.stream_ptr(ks.device))
     _build.LAUNCHES["path"] += 1
     _build.check(code, "path")
     ret = (out[0], out[1], out[2]), (out[3], out[4], out[5]), \

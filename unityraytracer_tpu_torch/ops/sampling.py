@@ -14,6 +14,14 @@ from .vec import Vec3
 PI = 3.14159265
 
 
+def uniform_from_bits(bits):
+    """Random bits (uint32 values in any integer tensor, or their int32 bit
+    patterns) -> float32 uniforms in [0, 1): the top 24 bits, so the float
+    is exact."""
+    top = (bits.to(torch.int64) & 0xFFFFFFFF) >> 8
+    return top.to(torch.float32) * (1.0 / (1 << 24))
+
+
 def tangent_frame(n: Vec3):
     """Orthonormal (tangent, binormal) for unit normals — the branchless
     Frisvad/Pixar construction of the JAX package."""

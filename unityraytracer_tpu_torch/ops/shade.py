@@ -78,6 +78,19 @@ def pack_rgbe_np(skybox) -> np.ndarray:
     return word.reshape(-1)
 
 
+def pack_rgbe(skybox) -> torch.Tensor:
+    """(H, W, 3) float tensor -> (H*W,) int64 RGBE words on its device, the
+    device twin of ``pack_rgbe_np`` (the JAX package's ``pack_rgbe``)."""
+    skybox = skybox.to(torch.float32)
+    m = skybox.amax(dim=-1)
+    exp = torch.ceil(torch.log2(torch.clamp_min(m, 1e-30))).to(torch.int64) + 1
+    scale = torch.exp2(8.0 - exp.to(torch.float32))
+    rgb = torch.clamp(skybox * scale[..., None], 0, 255).to(torch.int64)
+    e = torch.where(m > 1e-30, exp + 128, 0)
+    word = (e << 24) | (rgb[..., 0] << 16) | (rgb[..., 1] << 8) | rgb[..., 2]
+    return word.reshape(-1)
+
+
 def _rgbe_scale_table() -> np.ndarray:
     """Decode scale 2^(e-136) for every exponent byte, as the JAX package's
     ``jnp.exp2(e - 136.0)`` evaluates on XLA:CPU: exp of the float32 product

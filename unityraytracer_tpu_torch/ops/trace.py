@@ -64,7 +64,9 @@ def _empty_candidate(like):
                                 device=like.device))
 
 
-def _material_rows(scene: Scene, mid):
+def materials_for(scene: Scene, mid):
+    """Per-ray material params by id gather (the plain paths; the CUDA
+    kernels resolve materials themselves)."""
     mats = scene.materials
     return dict(albedo=vec.gather_rows(mats.albedo, mid),
                 specular=vec.gather_rows(mats.specular, mid),
@@ -101,7 +103,7 @@ def _sphere_candidate(scene: Scene, ro: Vec3, rd: Vec3):
     pos = vec.add(ro, vec.scale(rd, t))
     n = vec.normalize(vec.sub(pos, center))
     return dict(t=t, normal=n, prim=best + (scene.num_triangles + 1),
-                **_material_rows(scene, sp.material_id[best].long()))
+                **materials_for(scene, sp.material_id[best].long()))
 
 
 def _triangle_candidate(scene: Scene, ro: Vec3, rd: Vec3):
@@ -123,7 +125,7 @@ def _triangle_candidate(scene: Scene, ro: Vec3, rd: Vec3):
     n2 = vec.gather_rows(tr.n2, best)
     n = vec.add(vec.add(vec.scale(n0, w), vec.scale(n1, bu)), vec.scale(n2, bv))
     return dict(t=t, normal=vec.normalize(n), prim=best,
-                **_material_rows(scene, tr.material_id[best].long()))
+                **materials_for(scene, tr.material_id[best].long()))
 
 
 def fold_candidate(best, c):

@@ -37,8 +37,8 @@ from .bvh import ClusterAccel
 from .cuda_trace import KernelScene, make_pallas_tracer
 from .intersect import intersect_aabb, safe_inv_dir
 from .shade import Hit
-from .trace import (_ground_candidate, _material_rows, _sphere_candidate,
-                    combine_candidates, map_chunked)
+from .trace import (_ground_candidate, _sphere_candidate,
+                    combine_candidates, map_chunked, materials_for)
 from .vec import Vec3
 
 
@@ -100,7 +100,7 @@ def _finish_triangle_hit(scene: Scene, accel: ClusterAccel, t, u, v, tri_idx):
     n2 = vec.gather_rows(tr.n2, tri_idx)
     n = vec.add(vec.add(vec.scale(n0, w), vec.scale(n1, u)), vec.scale(n2, v))
     return dict(t=t, normal=vec.normalize(n), prim=tri_idx,
-                **_material_rows(scene, tr.material_id[tri_idx].long()))
+                **materials_for(scene, tr.material_id[tri_idx].long()))
 
 
 def _pick(v3: Vec3, idx) -> Vec3:
@@ -279,7 +279,9 @@ def make_accel_tracer(scene: Scene, accel, cfg):
     device = accel.device if isinstance(accel, KernelScene) \
         else scene.skybox.device
     if cfg.tracer == "pallas" or device.type == "cuda":
-        return make_pallas_tracer(scene, accel)
+        # Only "pallas" sorts its rays; "bvh" and "cluster" ignore bin_rays
+        # as the JAX package's do (its ops/traverse.py:270).
+        return make_pallas_tracer(scene, accel, sort=cfg.tracer == "pallas")
     if device.type != "cpu":
         raise ValueError(f"no tracer for device {device}")
     return accel_tracer_plain(scene, accel, cfg)

@@ -17,9 +17,23 @@ import torch
 Vec3 = Tuple  # (x, y, z) of same-shape tensors
 
 
+def vec3(x, y, z) -> Vec3:
+    return (x, y, z)
+
+
 def splat(v, like) -> Vec3:
     """Constant 3-vector broadcast to the shape of ``like`` (a tensor)."""
     return tuple(torch.full_like(like, c) for c in v)
+
+
+def from_rows(a) -> Vec3:
+    """(..., 3) tensor -> Vec3 of (...,) components."""
+    return (a[..., 0], a[..., 1], a[..., 2])
+
+
+def to_rows(v: Vec3) -> torch.Tensor:
+    """Vec3 -> (..., 3) tensor (use only at pipeline boundaries)."""
+    return torch.stack(v, dim=-1)
 
 
 def add(a: Vec3, b: Vec3) -> Vec3:
@@ -40,6 +54,12 @@ def scale(a: Vec3, s) -> Vec3:
 
 def dot(a: Vec3, b: Vec3):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def cross(a: Vec3, b: Vec3) -> Vec3:
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
 
 
 def normalize(a: Vec3, eps: float = 1e-20) -> Vec3:

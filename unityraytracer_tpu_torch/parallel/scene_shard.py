@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..ops.bvh import ClusterAccel, build_cluster_accel, morton_encode_3d
-from ..ops.cuda_trace import KernelScene
+from ..ops.cuda_trace import KernelScene, scene_bbox
 from ..ops.shade import Hit
 from ..scene import Scene, Triangles, tree_map
 
@@ -108,9 +108,8 @@ def shard_scene_pallas_accels(scene: Scene, cfg, n_dev: int) -> ClusterAccel:
     (v0 == v1 == v2, det == 0), inside the shard's own box, where the
     ``_FAR`` padding would stretch the last leaf's box and every box above
     it to 1e7 and get it tested by nearly every ray. The JAX package also
-    overrides each shard's bbox with the scene's; that bbox only seeds its
-    kernel's ray binning, which the closest-hit kernel does not have, so
-    nothing here carries it."""
+    gives each shard the whole scene's bbox, which centres its kernel's ray
+    sort; ``shard_kernel_scenes`` does the same."""
     v0, v1, v2, n0, n1, n2, mid, T = _morton_sorted_soa(scene)
     per = max(-(-T // n_dev), 1)
 
@@ -143,14 +142,18 @@ def local_accel(stacked_accel: ClusterAccel, k: int) -> ClusterAccel:
 def shard_kernel_scenes(scene: Scene, stacked_accel: ClusterAccel,
                         devices: Sequence) -> List[KernelScene]:
     """Shard k's ``KernelScene`` (the scene with ``local_accel(stacked, k)``)
-    on ``devices[k]``; the scene is uploaded once per distinct device."""
+    on ``devices[k]``; the scene is uploaded once per distinct device. Every
+    shard sorts its rays around the whole scene's bounds, as the JAX
+    package's shards do (``pallas_trace.py:3150-3159``)."""
+    bbox = scene_bbox(scene.triangles)
     on = {}
     out = []
     for k, d in enumerate(devices):
         d = torch.device(d)
         if d not in on:
             on[d] = scene.to(d)
-        out.append(KernelScene.create(on[d], local_accel(stacked_accel, k), d))
+        out.append(KernelScene.create(on[d], local_accel(stacked_accel, k), d,
+                                      bbox=bbox))
     return out
 
 

@@ -318,10 +318,13 @@ def render_sample(scene: Scene, tracer: Callable, camera: Camera, key,
 
     alive = torch.ones(N, dtype=torch.bool, device=device)
     alive_total = torch.zeros((), dtype=torch.float32, device=device)
+    lo_bin, hi_bin = cfg.ray_bin_bounces
     for b in range(cfg.bounces):
         if with_alive_count:
             alive_total = alive_total + alive.to(torch.float32).sum()
-        hit = tracer(ro, rd, alive, bin_rays=False)
+        bin_b = (lo_bin is not None and hi_bin is not None
+                 and lo_bin <= b <= hi_bin)
+        hit = tracer(ro, rd, alive, bin_rays=bin_b)
         kb = rng.fold_in(k_bounce, b)
         uniforms = tuple(uniform(rng.fold_in(kb, i)) for i in range(3))
         energy_before = energy

@@ -1,17 +1,64 @@
-"""Small matrix helpers and constants shared across the port.
+"""Small vector/matrix helpers and constants shared across the port.
 
-Host-side numpy, as in the JAX package (``normal_matrix``,
-``quat_to_matrix``, the TRS builders); per-ray vector math lives in
-``ops/vec.py``. Conventions follow the reference's Unity scenes:
-left-handed world, +y up, camera looks down +forward.
+The vector helpers (``dot`` to ``transform_dirs``) are torch functions on
+``(..., 3)`` float tensors, shape-polymorphic over leading batch dims, as
+the JAX package's are on arrays; the component-SoA ray math lives in
+``ops/vec.py``. The matrix builders (``normal_matrix``, ``quat_to_matrix``,
+the TRS builders) are host-side numpy, as in the JAX package. Conventions
+follow the reference's Unity scenes: left-handed world, +y up, camera looks
+down +forward.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 INF = float(np.finfo(np.float32).max)   # the JAX package's INF: f32 max
 EPSILON = 1e-8  # reference EPSILON, RayTraceShader.compute:13
+
+
+def dot(a, b):
+    return (a * b).sum(dim=-1)
+
+
+def cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def norm(a):
+    return torch.sqrt(torch.clamp_min(dot(a, a), 0.0))
+
+
+def normalize(a, eps: float = 1e-20):
+    return a / torch.sqrt(torch.clamp_min(dot(a, a), eps))[..., None]
+
+
+def sdot(x, y, f=1.0):
+    """Scaled, saturated dot product (reference ``sdot``,
+    RayTraceShader.compute:84)."""
+    return torch.clamp(dot(x, y) * f, 0.0, 1.0)
+
+
+def reflect(d, n):
+    """Mirror direction ``d`` about unit normal ``n`` (HLSL ``reflect``)."""
+    return d - 2.0 * dot(d, n)[..., None] * n
+
+
+def _linear(mat4, like):
+    return torch.as_tensor(np.asarray(mat4, np.float32)[:3],
+                           dtype=like.dtype, device=like.device)
+
+
+def transform_points(mat4, pts):
+    """Apply a (4, 4) affine matrix (numpy or tensor) to (..., 3) points."""
+    m = _linear(mat4, pts)
+    return pts @ m[:, :3].T + m[:, 3]
+
+
+def transform_dirs(mat4, dirs):
+    """Apply the linear part of a (4, 4) matrix to (..., 3) directions."""
+    return dirs @ _linear(mat4, dirs)[:, :3].T
 
 
 def normal_matrix(mat4: np.ndarray) -> np.ndarray:

@@ -5,7 +5,9 @@ traces one call of ``run()`` under ``torch.profiler`` (CUDA activity when
 the device is the card; the window ends in a synchronize so the device
 timeline is complete), exports the trace as Chrome JSON and parses it with
 ``parse_device_trace``, the pure parser, into a per-stage millisecond
-breakdown (:class:`DeviceProfile`).
+breakdown (:class:`DeviceProfile`). ``fetch_sync`` ends a window: it
+synchronises the devices of a tree's tensors and copies every tensor leaf
+to the host.
 
 Device rows are the trace's events whose ``cat`` is torch's kernel, memcpy
 or memset category. A trace with none of those (a CPU-only window, or a
@@ -186,6 +188,34 @@ def parse_device_trace(logdir_or_file: str,
                  key=lambda x: -x[1])[:20]
     return DeviceProfile(total_ms=total, stages_ms=stages_ms,
                          per_occurrence_ms=per_occ, top_ops=top)
+
+
+def _tensor_leaves(tree) -> list:
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        tree = list(tree.values())
+    elif not isinstance(tree, (list, tuple)):
+        return []
+    return [leaf for x in tree for leaf in _tensor_leaves(x)]
+
+
+def fetch_sync(tree) -> None:
+    """Synchronise the devices of every tensor leaf of ``tree`` (nested
+    dataclasses, dicts, lists and tuples) and copy each leaf to the host,
+    the JAX package's ``fetch_sync``: the copies end only when the work
+    that makes the leaves has."""
+    import torch
+
+    leaves = _tensor_leaves(tree)
+    for d in {t.device for t in leaves if t.device.type == "cuda"}:
+        torch.cuda.synchronize(d)
+    for leaf in leaves:
+        leaf.cpu()
 
 
 def profile_stages(run, logdir: Optional[str] = None,
