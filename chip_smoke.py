@@ -110,7 +110,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    f. ``render --unity`` on ``UNITY_SCENE`` (2 spheres, 14 triangles, the
       settings line);
    g. ``preview --frames 12 --every 4 --port p`` with both URLs fetched;
-   h. ``--rng rbg`` and an unknown tracer raise, and ``preview --shard
+   h. an unknown ``--rng`` and an unknown tracer raise, and ``preview --shard
       rows`` returns 2.
 
 9. the rest of the port's surface at the main path's width
@@ -160,6 +160,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
    e. the main path, sorted and unsorted ``Renderer.step(1)`` in turns
       (medians of 12 with their spreads), the same launches and device
       events a frame, the accumulators bit-equal.
+
+11. ``rng_impl="rbg"``, the configuration ``bench.py`` runs (``rbg_phase``;
+   Philox4x32-10 bits, which equal the JAX package's on XLA:CPU):
+   a. each draw kernel's rbg mode against its plain version (the int64
+      Philox of ``rng.py``), bit for bit: ``urt_uniform`` on 2,073,600 and
+      10,368,000 counters under a key whose counter carries out of word 0;
+      ``urt_bounce_rows`` at 1920x1080 x 8 with ``rr_group="step"``, at the
+      quality chunk and at a band with ``row0 > 0``; ``urt_camera_rays``
+      (within CAMERA_ULP) at 1080p in block order and at 192x96 in pixel
+      order; ``urt_sky_tap`` at the ray index, a ray_index row and a
+      pixel-order lattice in both fetches; each timed from graph replays in
+      turns with its threefry launch of the same shape (``ms_threefry``),
+      its bound priced by a Philox block's SASS (``sass_counts``);
+   b. the main path, ``Renderer(bench_scene(100_000), RenderConfig(1920,
+      1080, spp=1, bounces=8, tracer="pallas", wavefront=True,
+      rr_group="step", rng_impl="rbg"), device="cuda")``: 12 ``step(1)``
+      frames in turns with 12 threefry frames, one launch a frame of the
+      path kernel and of the sky-tap, camera-ray and uniform-row kernels'
+      rbg modes and nothing else, at most 14 Python threefry hashes a step
+      (both halves of each key), the layers timed alone;
+   c. the oracle gate under rbg at 192x96 x 4, RMSE < 1e-3;
+   d. one frame each under rbg: the quality preset (timed in turns with
+      threefry, peak memory), ``megakernel=False`` (``urt_uniform``'s rbg
+      mode), ``ENV_IMPL="bf16"`` (bit-equal), the split (within 1e-5) and
+      ``dispatch_bands=5`` (bit-equal to its bands).
+   The kernels line lists the rbg modes as ``uniform_rbg``,
+   ``camera_rays_rbg``, ``bounce_rows_rbg`` and ``env_rbg``, with their
+   launches on the rbg main path (``uniform_rbg``: the rbg
+   ``megakernel=False`` frame).
 
 Phase 3 also holds the path kernel's 16 resume-state rows against the plain
 version's (bit for bit, at 192x96 x 4 and on the 1080p x 8 subset with two
@@ -273,6 +302,12 @@ FLOP_TRI = 49
 # subtraction (10).
 FLOP_TAP = 19
 FLOP_TAP_GUIDE = 10
+# One Philox4x32-10 block, the four words of four rbg draws, for
+# sass_counts: the block of counter (i, 0, k1, 0) under (k0, k1), its words
+# XORed so that none is dropped.
+PHILOX_BLOCK = ("[&] { const uint4 b = urt_philox4x32_10(k0, k1, "
+                "make_uint4(i, 0u, k1, 0u)); "
+                "return __uint_as_float(b.x ^ b.y ^ b.z ^ b.w); }()")
 
 
 def bound(nbytes, ops=0.0, rate=PEAK_F32):
@@ -360,7 +395,8 @@ def sass_counts(pairs, flags) -> dict:
     """SASS instructions that ``body`` adds to ``base``, by opcode, for each
     ``name: (body, base)`` of ``pairs``: two kernels that write
     ``y[i] = body`` and ``y[i] = base`` for one thread's index ``i`` (keys
-    ``k0``, ``k1`` by value, csrc/threefry.cuh included), all built at once
+    ``k0``, ``k1`` by value, csrc/philox.cuh and threefry.cuh included),
+    all built at once
     with ``flags`` and read back with cuobjdump (NOPs not counted). The
     kernels are straight-line code, so a static count is what each thread
     runs."""
@@ -375,7 +411,7 @@ def sass_counts(pairs, flags) -> dict:
             for side, body in zip(("body", "base"), bodies):
                 src = os.path.join(tmp, f"{name}_{side}.cu")
                 with open(src, "w") as f:
-                    f.write('#include "threefry.cuh"\n'
+                    f.write('#include "philox.cuh"\n'
                             "__global__ void k(const float* x, float* y, "
                             "unsigned k0, unsigned k1) {\n"
                             "  const unsigned i = blockIdx.x * blockDim.x "
@@ -585,8 +621,9 @@ def command_line_phase(counted, bits_equal) -> dict:
         return cli_run(counted, argv)
 
     def expect(la, frames, trace=0, atrous=0):
-        want = dict(path=frames, env=frames, uniform=0, bounce_rows=frames,
-                    camera=frames, trace=trace, atrous=atrous, env_planes=0)
+        want = dict({k: 0 for k in la}, path=frames, env=frames,
+                    bounce_rows=frames, camera=frames, trace=trace,
+                    atrous=atrous)
         if la != want:
             raise AssertionError(f"launches {la}, expected {want}")
 
@@ -849,7 +886,8 @@ def command_line_phase(counted, bits_equal) -> dict:
         base = ["render", *bench, "-o",
                 os.path.join(tmp, "never.png")]
         raised = {}
-        for flags, exc, word in ((["--rng", "rbg"], ValueError, "rbg"),
+        for flags, exc, word in ((["--rng", "philox4x32"], ValueError,
+                                  "unknown rng_impl"),
                                  (["--tracer", "embree"], ValueError,
                                   "unknown tracer")):
             try:
@@ -1501,6 +1539,432 @@ def ray_sort_phase(counted, scene_np, accel_np, ks, cfg_s, kernels) -> dict:
     return by_path
 
 
+def rbg_phase(counted, bits_equal, scene_np, ks, kernels, block_ops) -> dict:
+    """Phase 11: ``rng_impl="rbg"``, bench.py's own configuration. Each draw
+    kernel's rbg mode against its plain version bit for bit (the camera
+    within CAMERA_ULP), timed from graph replays in turns with its threefry
+    launch of the same shape; the main path under rbg in turns with the
+    threefry main path, its launches, host hashes and layers; the oracle
+    gate; a frame of each other configuration. Adds the ``*_rbg`` rows to
+    ``kernels`` and returns the launch counts of its paths. Raises on any
+    failure."""
+    import numpy as np
+    import torch
+
+    from unityraytracer_tpu_torch import RenderConfig, Renderer, _build, rng
+    from unityraytracer_tpu_torch.models import fixtures
+    from unityraytracer_tpu_torch.ops import cuda_env
+    from unityraytracer_tpu_torch.ops.cuda_env import sky_tap, sky_tap_plain
+    from unityraytracer_tpu_torch.ops.cuda_path import path_trace
+    from unityraytracer_tpu_torch.ops.shade import rgbe_scale
+    from unityraytracer_tpu_torch.render import (RenderState, _camera_rays,
+                                                 _env_tap, _frame_inputs,
+                                                 _sky_keys, bounce_args,
+                                                 bounce_rows,
+                                                 bounce_rows_plain,
+                                                 camera_args,
+                                                 camera_rays_plain,
+                                                 progressive_step,
+                                                 render_frame)
+    from unityraytracer_tpu_torch.utils.image import rmse, ulp_distance
+
+    t_phase = time.perf_counter()
+    dev, scene, lib = ks.device, ks.scene, _build.lib()
+    cfg_r, cfg_t = RenderConfig(**MAIN, rng_impl="rbg"), RenderConfig(**MAIN)
+    W, H = cfg_r.width, cfg_r.height
+    n = W * H
+    nb = cfg_r.bounces
+    cam_main = fixtures.bench_camera(aspect=W / H)
+    cam_small = fixtures.bench_camera(aspect=2.0)
+    qsub = RenderConfig(**QUALITY, rng_impl="rbg").replace(
+        spp=QUALITY["spp_chunk"], spp_chunk=None)
+    # Word 0 of the 128-bit counter carries at block 100,001, into word 1
+    # and on into word 2.
+    carry = np.array([0x2545F491, 0x4F6CDD1D, 0xFFFFFFFF - 100_000,
+                      0xFFFFFFFF], np.uint32)
+
+    def in_turns(rbg_launch, tf_launch, rounds=3):
+        """Medians of kernel_ms of the two launches, taken in turns."""
+        ms = {"rbg": [], "threefry": []}
+        for i in range(rounds):
+            order = (("rbg", rbg_launch), ("threefry", tf_launch))
+            for tag, fn in (order if i % 2 == 0 else order[::-1]):
+                ms[tag].append(kernel_ms(fn))
+        return float(np.median(ms["rbg"])), float(np.median(ms["threefry"]))
+
+    def entry(name, source, replaces, err, ulp, ms, ms_tf, plain_ms, nbytes,
+              blocks, shape):
+        b, by = bound(nbytes, blocks * block_ops, PEAK_I32)
+        kernels[name] = dict(
+            route="cuda", source=f"unityraytracer_tpu_torch/csrc/{source}",
+            replaces=f"unityraytracer_tpu/{replaces}", max_abs_err=err,
+            max_ulp=ulp, ms=ms, ms_threefry=ms_tf, plain_ms=plain_ms,
+            bound_ms=b, bound_by=by, shape=shape, plain_shape=shape,
+            philox_blocks=blocks, block_ops=block_ops)
+        log(f"11a {name}:", json.dumps(kernels[name]))
+
+    # 11a. urt_uniform: the carry key, bit for bit.
+    for size in (n, 5 * n):
+        got = rng.uniform(carry, (size,), device=dev)
+        want = rng.uniform_plain(carry, (size,), device=dev)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise AssertionError(f"11a urt_uniform rbg differs from its plain "
+                                 f"version on {size} counters")
+        log(f"11a uniform rbg: {size} counters, carry key, bit-identical")
+    del got, want
+    uout = torch.empty(n, dtype=torch.float32, device=dev)
+
+    def uniform_launch(key_):
+        words, rbg = rng.kernel_words(key_)
+
+        def launch():
+            _build.check(lib.urt_uniform(*words, rbg, uout.data_ptr(), n,
+                                         _build.stream_ptr(dev)), "uniform")
+        return launch
+
+    ms, ms_tf = in_turns(uniform_launch(rng.key(51, "rbg")),
+                         uniform_launch(rng.key(51)))
+    plain_ms = cuda_ms(lambda: rng.uniform_plain(carry, (n,), device=dev), 3,
+                       1)
+    entry("uniform_rbg", "uniform_kernel.cu", "render.py:465", 0.0, 0, ms,
+          ms_tf, plain_ms, n * 4, n // 4, [n])
+    del uout
+
+    # urt_bounce_rows: 1080p x 8 (rr_group="step"), the quality chunk and a
+    # band with row0 > 0.
+    row_cases = {"main 1920x1080 x 8, rr_group step": (cfg_r, H, 0),
+                 "quality chunk spp 5 x 10 bounces": (qsub, H, 0),
+                 "band rows 216-431 of dispatch_bands=5": (cfg_r, 216, 216)}
+    for tag, (c, h, row0) in row_cases.items():
+        kb = rng.split(rng.fold_in(rng.key(52, "rbg"), row0), 3)[2]
+        got = bounce_rows(kb, c, h, row0, True, dev)
+        want = bounce_rows_plain(kb, c, h, row0, True, dev)
+        torch.cuda.synchronize()
+        same = bits_equal(got, want)
+        log(f"11a bounce_rows rbg [{tag}]: {tuple(got.shape)}, bit-identical "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"11a urt_bounce_rows rbg vs plain ({tag})")
+    del got, want
+
+    def rows_launch(c, key_):
+        args = bounce_args(key_, c, c.height, 0, True)
+        out = torch.empty((c.bounces, 5, args.n), dtype=torch.float32,
+                          device=dev)
+
+        def launch():
+            _build.check(lib.urt_bounce_rows(ctypes.byref(args),
+                                             out.data_ptr(),
+                                             _build.stream_ptr(dev)),
+                         "bounce_rows")
+        return launch
+
+    kb_r = rng.split(rng.key(53, "rbg"), 3)[2]
+    kb_t = rng.split(rng.key(53), 3)[2]
+    ms, ms_tf = in_turns(rows_launch(cfg_r, kb_r), rows_launch(cfg_t, kb_t))
+    plain_ms = cuda_ms(lambda: bounce_rows_plain(kb_r, cfg_r, H, 0, True,
+                                                 dev), 3, 1)
+    # The rows written once; a block of each of u_r, u1 and u2 for four
+    # rays, and one of the roulette key for four rays' shared group
+    # counter on the bounces that draw it (log2, cos and sin left out).
+    rr_lo, rr_hi = 2, nb - 1
+    entry("bounce_rows_rbg", "uniform_kernel.cu", "render.py:495", 0.0, 0,
+          ms, ms_tf, plain_ms, nb * 5 * n * 4,
+          n // 4 * (3 * nb + rr_hi - rr_lo), [nb, 5, n])
+    n_q, nb_q = qsub.num_rays, qsub.bounces
+    q_ms, q_ms_tf = in_turns(rows_launch(qsub, kb_r),
+                             rows_launch(qsub.replace(rng_impl="threefry2x32"),
+                                         kb_t))
+    qb, qby = bound(nb_q * 5 * n_q * 4,
+                    n_q // 4 * (3 * nb_q + nb_q - 3) * block_ops, PEAK_I32)
+    kernels["bounce_rows_rbg"]["quality_chunk"] = dict(
+        shape=[nb_q, 5, n_q], ms=q_ms, ms_threefry=q_ms_tf, bound_ms=qb,
+        bound_by=qby, share=qb / q_ms)
+    log("11a bounce_rows rbg at the quality chunk:",
+        json.dumps(kernels["bounce_rows_rbg"]["quality_chunk"]))
+
+    # urt_camera_rays: 1080p in block order, the oracle's 192x96 in pixel
+    # order.
+    small_b = RenderConfig(**dict(MAIN, width=192, height=96, bounces=4,
+                                  tracer="brute", rng_impl="rbg"))
+    cam_err, cam_ulp = 0.0, 0
+    for tag, (cam, c, h, blk) in {
+            "main 1920x1080 block order": (cam_main, cfg_r, H, True),
+            "oracle 192x96 pixel order": (cam_small, small_b, 96,
+                                          False)}.items():
+        key = rng.key(54, "rbg")
+        ro_k, rd_k, _ = _camera_rays(cam, key, c, h, c.width, 1, 0, blk, dev)
+        ro_p, rd_p = camera_rays_plain(cam, key, c, h, c.width, 1, 0, blk,
+                                       dev)
+        torch.cuda.synchronize()
+        got, want = torch.stack(ro_k + rd_k), torch.stack(ro_p + rd_p)
+        ulp = ulp_distance(got, want)
+        err = float((got - want).abs().max())
+        cam_err, cam_ulp = max(cam_err, err), max(cam_ulp, ulp)
+        log(f"11a camera rays rbg [{tag}]: {tuple(got.shape)}, max {ulp} ulp, "
+            f"finite {bool(torch.isfinite(got).all())}")
+        if not (ulp <= CAMERA_ULP and torch.isfinite(got).all()):
+            raise AssertionError(f"11a urt_camera_rays rbg vs plain ({tag}): "
+                                 f"{ulp} ulp")
+    del got, want, ro_k, rd_k, ro_p, rd_p
+    cout = torch.empty((6, n), dtype=torch.float32, device=dev)
+
+    def camera_launch(key_):
+        args = camera_args(cam_main, key_, cfg_r, H, W, 1, 0, True)
+
+        def launch():
+            _build.check(lib.urt_camera_rays(ctypes.byref(args),
+                                             cout.data_ptr(),
+                                             _build.stream_ptr(dev)),
+                         "camera")
+        return launch
+
+    ms, ms_tf = in_turns(camera_launch(rng.key(55, "rbg")),
+                         camera_launch(rng.key(55)))
+    ckey = rng.key(55, "rbg")
+    plain_ms = cuda_ms(lambda: camera_rays_plain(cam_main, ckey, cfg_r, H, W,
+                                                 1, 0, True, dev), 3, 1)
+    # ro and rd written once; a block of each of the four keys for four
+    # rays (the ~80 float operations a ray are left out).
+    entry("camera_rays_rbg", "camera_kernel.cu", "render.py:460", cam_err,
+          cam_ulp, ms, ms_tf, plain_ms, n * 24, n // 4 * 4, [6, n])
+    del cout
+
+    # urt_sky_tap: counter i, a ray_index row and a pixel-order lattice, in
+    # both fetches, on random directions with the pick's edge cases.
+    hw = tuple(scene_np.skybox.shape[:2])
+    packed = scene.skybox_rgbe
+    g = torch.Generator(device=dev).manual_seed(11)
+    d = torch.randn((3, n), generator=g, device=dev)
+    d = d / d.norm(dim=0, keepdim=True)
+    d[:, :len(SKY_EDGES)] = torch.tensor(SKY_EDGES, device=dev).T
+    rows = (tuple(torch.rand((3, n), generator=g, device=dev)),
+            tuple(torch.rand((3, n), generator=g, device=dev) * 2), tuple(d))
+    k_sky = _sky_keys(cfg_r, rng.split(rng.key(56, "rbg"), 3)[2])
+    modes = {"counter i": {},
+             "ray_index": {"ray_index": torch.randint(
+                 0, 5 * n, (n,), generator=g, device=dev)},
+             "block slot": {"lattice": (H, W, 1)}}
+    for impl in ("int8x8", "bf16"):
+        for tag, kw in modes.items():
+            rad, se, sd = rows
+            got = sky_tap(hw, packed, tuple(c.clone() for c in rad), se, sd,
+                          k_sky, impl=impl, **kw)
+            want = sky_tap_plain(hw, packed, tuple(c.clone() for c in rad),
+                                 se, sd, k_sky, impl=impl, **kw)
+            torch.cuda.synchronize()
+            same = bits_equal(torch.stack(got), torch.stack(want))
+            log(f"11a sky tap rbg [{impl}, {tag}]: {n} rays, bit-identical "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"11a urt_sky_tap rbg vs plain ({impl}, "
+                                     f"{tag})")
+    del got, want, modes
+    # Timed on the rbg main path's own 1080p path-kernel output.
+    ro, rd, uni, k_b, _ = _frame_inputs(scene, cam_main, rng.key(57, "rbg"),
+                                        cfg_r)
+    rad, se, sd = path_trace(ks, ro, rd, uni, cfg_r)
+    scratch = tuple(c.clone() for c in rad)
+
+    def sky_launch(keys):
+        (w1, rbg), (w2, _) = (rng.kernel_words(k) for k in keys)
+        k8 = (*w1, *w2) if rbg else (*w1[:2], *w2[:2], 0, 0, 0, 0)
+        ptrs = [c.data_ptr() for c in (*scratch, *se, *sd)]
+        scale = rgbe_scale(dev).data_ptr()
+
+        def launch():
+            _build.check(lib.urt_sky_tap(*ptrs, packed.data_ptr(), 0, scale,
+                                         hw[0], hw[1], *k8, rbg, None, 0, 0,
+                                         n, _build.stream_ptr(dev)),
+                         "env")
+        return launch
+
+    keys_r = _sky_keys(cfg_r, k_b)
+    keys_t = _sky_keys(cfg_t, rng.fold_in(rng.key(57), 2))
+    ms, ms_tf = in_turns(sky_launch(keys_r), sky_launch(keys_t))
+    plain_ms = cuda_ms(lambda: sky_tap_plain(hw, packed, scratch, se, sd,
+                                             keys_r), 3, 1)
+    # Radiance, sky throughput and sky direction read, radiance written,
+    # the sky map read once; a block of each key for four rays.
+    entry("env_rbg", "env_kernel.cu", "ops/pallas_env.py:88", 0.0, 0, ms,
+          ms_tf, plain_ms, n * 48 + packed.numel() * 4, n // 4 * 2, [n])
+    del ro, rd, uni, rad, se, sd, scratch, rows, d
+
+    # 11b. The main path under rbg, in turns with the threefry main path.
+    rr = Renderer(scene_np, cam_main, cfg_r, seed=0, device="cuda")
+    rt = Renderer(scene_np, cam_main, cfg_t, accel=rr.accel, seed=0,
+                  device="cuda")
+    rr.step(1)
+    rt.step(1)
+    ms_ab = {"rbg": [], "threefry": []}
+    main_launch = {k: 0 for k in _build.LAUNCHES}
+    for _ in range(12):
+        _, la = counted(lambda: rr.step(1))
+        for k in la:
+            main_launch[k] += la[k]
+        ms_ab["rbg"].append(rr.stats["ms_per_frame"])
+        rt.step(1)
+        ms_ab["threefry"].append(rt.stats["ms_per_frame"])
+    img = rr.image
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("11b rbg main path: non-finite or black image")
+    want = {"path": 12, "env_rbg": 12, "camera_rbg": 12, "bounce_rows_rbg": 12}
+    if any(main_launch[k] != v for k, v in want.items()) \
+            or sum(main_launch.values()) != 48:
+        raise AssertionError(f"11b rbg main path: expected one path, sky-tap, "
+                             f"camera-ray and uniform-row launch a frame in "
+                             f"their rbg modes and no urt_uniform, got "
+                             f"{main_launch} in 12")
+    by_path = {"rbg": main_launch}
+    hashes, hash_ = [], rng.threefry2x32
+    rng.threefry2x32 = lambda *a: hashes.append(a) or hash_(*a)
+    try:
+        rr.step(1)
+    finally:
+        rng.threefry2x32 = hash_
+    if len(hashes) > 14:
+        raise AssertionError(f"11b rbg step(1) hashed {len(hashes)} keys on "
+                             "the host")
+    spread = {k: (float(np.median(v)), min(v), max(v))
+              for k, v in ms_ab.items()}
+    log("11b main path 1080p x 8, 12 step(1) frames each in turns: "
+        + "; ".join(f"{k} median {m:.3f} ms (min {lo:.3f}, max {hi:.3f}), "
+                    f"{n * nb / m / 1e3:.2f} Mrays/s"
+                    for k, (m, lo, hi) in spread.items())
+        + f"; rbg launches {main_launch}; host threefry hashes in one rbg "
+        f"step(1): {len(hashes)}")
+    wall_ms, busy_ms, n_events = device_window(rr)
+    log(f"11b rbg profiled window: 3 frames, wall {wall_ms:.3f} ms, device "
+        f"busy {busy_ms:.3f} ms, {n_events / 3:.1f} device events a frame")
+    fkey_r, fkey_t = rng.key(58, "rbg"), rng.key(58)
+    layers = {}
+    for tag, c, fk in (("rbg", cfg_r, fkey_r), ("threefry", cfg_t, fkey_t)):
+        ro, rd, uni, k_b, _ = _frame_inputs(scene, cam_main, fk, c)
+        rad, se, sd = path_trace(rr.accel, ro, rd, uni, c)
+        layers[tag] = {
+            "camera_rays": cuda_ms(lambda: _camera_rays(
+                cam_main, fk, c, H, W, 1, 0, True, dev), 10, 2),
+            "uniform_rows": cuda_ms(lambda: bounce_rows(
+                k_b, c, H, 0, True, dev), 10, 2),
+            "sky_tap": cuda_ms(lambda: _env_tap(scene, c, rad, se, sd, k_b),
+                               10, 2)}
+        del ro, rd, uni, rad, se, sd
+    log("11b layers (ms, CUDA events around calls back to back): " + "; ".join(
+        f"{tag} " + ", ".join(f"{k} {v:.4f}" for k, v in ls.items())
+        for tag, ls in layers.items()))
+
+    # 11c. The oracle gate under rbg.
+    cfg_s = RenderConfig(**dict(MAIN, width=192, height=96, bounces=4,
+                                rng_impl="rbg"))
+    key = rng.key(42, "rbg")
+    fast = render_frame(scene, cfg_s, cam_small, key, ks).cpu().numpy()
+    oracle = render_frame(scene, cfg_s.replace(tracer="brute",
+                                               ray_chunk=1024), cam_small,
+                          key).cpu().numpy()
+    oracle_rmse = rmse(fast, oracle)
+    log(f"11c oracle gate under rbg: RMSE {oracle_rmse:.3e} (megakernel vs "
+        "brute, 192x96x4, same key)")
+    if not (np.isfinite(fast).all() and oracle_rmse < 1e-3):
+        raise AssertionError(f"11c rbg oracle gate failed: RMSE {oracle_rmse}")
+
+    # 11d. One frame of each other configuration under rbg.
+    qcfg = RenderConfig(**QUALITY, rng_impl="rbg")
+    scene_q, cam_q = fixtures.sample_scene(), fixtures.sample_scene_camera(
+        16 / 9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    rq = Renderer(scene_q, cam_q, qcfg, seed=0, device="cuda").step(1)
+    peak = torch.cuda.max_memory_allocated()
+    rqt = Renderer(scene_q, cam_q, qcfg.replace(rng_impl="threefry2x32"),
+                   accel=rq.accel, seed=0, device="cuda").step(1)
+    q_ms = {"rbg": [], "threefry": []}
+    for _ in range(2):
+        _, la = counted(lambda: rq.step(1))
+        q_ms["rbg"].append(rq.stats["ms_per_frame"])
+        rqt.step(1)
+        q_ms["threefry"].append(rqt.stats["ms_per_frame"])
+    n_chunks = -(-qcfg.spp // qcfg.spp_chunk)
+    by_path["rbg_quality"] = la
+    if not (np.isfinite(rq.image).all() and rq.image.max() > 0) or any(
+            la[k] != n_chunks for k in ("path", "env_rbg", "camera_rbg",
+                                        "bounce_rows_rbg")) \
+            or sum(la.values()) != 4 * n_chunks:
+        raise AssertionError(f"11d rbg quality preset: image or launches {la}")
+    log(f"11d quality preset under rbg: frames {q_ms['rbg']} ms, threefry in "
+        f"turns {q_ms['threefry']} ms; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB, {(peak - resident) / 2 ** 30:.3f} GiB of "
+        f"it above what was resident before the renderer; launches a frame "
+        f"{la}")
+    del rq, rqt
+
+    loop, la = counted(lambda: Renderer(
+        scene_np, cam_main, cfg_r.replace(megakernel=False), accel=rr.accel,
+        seed=0, device="cuda").step(1))
+    by_path["rbg_loop"] = la
+    if not (np.isfinite(loop.image).all() and la["trace"] >= 1
+            and la["uniform_rbg"] >= 1 and la["camera_rbg"] == 1
+            and la["uniform"] == 0 and la["camera"] == 0):
+        raise AssertionError(f"11d rbg megakernel=False frame: launches {la}")
+    log(f"11d megakernel=False under rbg: "
+        f"{loop.stats['ms_per_frame']:.2f} ms; launches {la}")
+    del loop
+
+    r_def = Renderer(scene_np, cam_main, cfg_r, accel=rr.accel, seed=9,
+                     device="cuda").step(1)
+    cuda_env.ENV_IMPL = "bf16"
+    try:
+        r_bf, la = counted(lambda: Renderer(scene_np, cam_main, cfg_r,
+                                            accel=rr.accel, seed=9,
+                                            device="cuda").step(1))
+    finally:
+        cuda_env.ENV_IMPL = "int8x8"
+    by_path["rbg_bf16"] = la
+    same = bits_equal(r_bf.state.accum, r_def.state.accum)
+    log(f"11d ENV_IMPL='bf16' under rbg: bit-equal to the default fetch "
+        f"{same}; launches {la}")
+    if not (same and la["env_planes_rbg"] == 1 and la["env_rbg"] == 0):
+        raise AssertionError(f"11d rbg bf16 frame: equal {same}, {la}")
+    del r_def, r_bf
+
+    fkey = rng.key(21, "rbg")
+    unsplit = render_frame(scene, cfg_r, cam_main, fkey, rr.accel)
+    split, la = counted(lambda: render_frame(scene, cfg_r.replace(**SPLIT),
+                                             cam_main, fkey, rr.accel))
+    _build.raise_on_overflow(dev)
+    split_err = float((split - unsplit).abs().max())
+    by_path["rbg_split"] = la
+    log(f"11d split vs unsplit under rbg: max |diff| {split_err:.3e}; "
+        f"launches {la}")
+    if not (torch.isfinite(split).all() and split_err <= 1e-5
+            and la["env_rbg"] == 3):
+        raise AssertionError(f"11d rbg split frame: {split_err}, {la}")
+    del split, unsplit
+
+    bcfg5 = cfg_r.replace(dispatch_bands=5)
+    rb, la = counted(lambda: Renderer(scene_np, cam_main, bcfg5,
+                                      accel=rr.accel, seed=5,
+                                      device="cuda").step(1))
+    by_path["rbg_bands"] = la
+    fkey5 = rng.fold_in(rng.split(rng.key(5, "rbg"))[1], 0)
+    bh = -(-H // 5)
+    manual = [render_frame(scene, bcfg5, cam_main, rng.fold_in(fkey5, bi),
+                           rr.accel, row0=row0, rows=min(bh, H - row0))
+              for bi, row0 in enumerate(range(0, H, bh))]
+    want = progressive_step(RenderState.create(W, H, dev),
+                            torch.cat(manual, dim=0)).accum
+    same = bits_equal(rb.state.accum, want)
+    log(f"11d dispatch_bands=5 under rbg: bit-equal to its bands' "
+        f"composition {same}; launches {la}")
+    if not (same and la["path"] == 5 and la["camera_rbg"] == 5
+            and la["env_rbg"] == 5):
+        raise AssertionError(f"11d rbg bands: equal {same}, {la}")
+    del rb, manual, want, rr, rt
+    log(f"11 rbg phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1567,10 +2031,15 @@ def main() -> int:
     # are built: they price the bounds of the threefry and a-trous kernels.
     sass = sass_counts({"draw": ("urt_uniform_at(k0, k1, i)",
                                  "__uint_as_float(i)"),
-                        "expf": ("expf(x[i])", "x[i]")}, _build.NVCC_FLAGS)
+                        "expf": ("expf(x[i])", "x[i]"),
+                        "philox": (PHILOX_BLOCK, "__uint_as_float(i)")},
+                       _build.NVCC_FLAGS)
     draw_ops, n_exp = int_ops(sass["draw"]), sum(sass["expf"].values())
+    block_ops = int_ops(sass["philox"])
     log(f"SASS of one threefry draw {sass['draw']}: {draw_ops} int32 ops "
-        f"for its bound; of one expf {sass['expf']}: {n_exp} instructions")
+        f"for its bound; of one expf {sass['expf']}: {n_exp} instructions; "
+        f"of one Philox4x32-10 block (four rbg draws) {sass['philox']}: "
+        f"{block_ops} int32 ops")
 
     # Scene, accel and cameras shared by every phase.
     scene_np = fixtures.bench_scene(n_tris=N_TRIS)
@@ -1695,8 +2164,9 @@ def main() -> int:
     uout = torch.empty(n_env, dtype=torch.float32, device=dev)
 
     def uniform_launch():
-        _build.check(lib.urt_uniform(uk0, uk1, uout.data_ptr(), n_env,
-                                     _build.stream_ptr(dev)), "uniform")
+        _build.check(lib.urt_uniform(uk0, uk1, 0, 0, 0, uout.data_ptr(),
+                                     n_env, _build.stream_ptr(dev)),
+                     "uniform")
 
     def uniform_call():
         return rng.uniform(ukey, (n_env,), device=dev)
@@ -2543,10 +3013,17 @@ def main() -> int:
     by_path.update(ray_sort_phase(counted, scene_np, accel_np, ks, cfg_s,
                                   kernels))
 
+    # 11. rng_impl="rbg": bench.py's own random streams.
+    by_path.update(rbg_phase(counted, bits_equal, scene_np, ks, kernels,
+                             block_ops))
+
     for k in kernels:
         use = {"env_planes": "bf16", "trace": "preview",
-               "atrous": "preview", "uniform": "loop"}.get(k, "main")
-        count = {"camera_rays": "camera"}.get(k, k)
+               "atrous": "preview", "uniform": "loop",
+               "uniform_rbg": "rbg_loop", "camera_rays_rbg": "rbg",
+               "bounce_rows_rbg": "rbg", "env_rbg": "rbg"}.get(k, "main")
+        count = {"camera_rays": "camera",
+                 "camera_rays_rbg": "camera_rbg"}.get(k, k)
         kernels[k]["launches"] = by_path[use][count]
         kernels[k]["launches_by_path"] = {p_: v[count] for p_, v in
                                           by_path.items()}
@@ -2558,7 +3035,8 @@ def main() -> int:
     log(card)
     keys = ("route", "source", "replaces", "launches",
             "launches_megakernel_false", "launches_by_path", "max_abs_err",
-            "max_ulp", "ms", "host_ms", "call_ms", "plain_ms", "bound_ms",
+            "max_ulp", "ms", "ms_threefry", "host_ms", "call_ms", "plain_ms",
+            "bound_ms",
             "bound_by", "library_ms", "shape", "plain_shape", "sort_window",
             "ms_binned", "ms_unbinned", "binned_bit_equal", "binned_shape",
             "sort_prologue_ms", "order_equal", "simt_bounce1")

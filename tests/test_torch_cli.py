@@ -341,16 +341,17 @@ def test_info_prints_device_and_counts(capsys):
 
 
 def test_what_is_not_ported_raises(tmp_path, capsys):
-    """What the port refuses raises and renders nothing: ``--rng rbg``, an
-    unknown tracer, an unknown ``--shard`` mode; ``preview --shard``
-    returns 2 with the JAX message. ``--tracer bvh|cluster`` and
-    ``--shard`` are ported (``test_accel_tracer_and_shard_flags_render``)."""
+    """What the port refuses raises and renders nothing: an unknown
+    ``--rng``, an unknown tracer, an unknown ``--shard`` mode; ``preview
+    --shard`` returns 2 with the JAX message. ``--tracer bvh|cluster``,
+    ``--shard`` (``test_accel_tracer_and_shard_flags_render``) and ``--rng
+    rbg`` (``test_torch_rbg.py``) are ported."""
     base = ["render", *SIZE, "--device", "cpu", "-o",
             str(tmp_path / "never.png")]
     for tracer in ("bvh", "cluster"):
         assert RenderConfig(tracer=tracer).tracer == tracer
-    with pytest.raises(ValueError, match="rbg"):
-        main(base + ["--rng", "rbg"])
+    with pytest.raises(ValueError, match="unknown rng_impl 'philox4x32'"):
+        main(base + ["--rng", "philox4x32"])
     with pytest.raises(ValueError, match="unknown tracer"):
         main(base + ["--tracer", "embree"])
     assert not (tmp_path / "never.png").exists()

@@ -28,7 +28,10 @@ equal their plain route's where both hit the same primitive. The ray sort
 (``ray_bin_bounces``, ``bin_rays``) reorders rays whose hits and shading do
 not depend on their order, so every sorted kernel is bit-equal to its
 unsorted launch, counts included, and the closest-hit kernel's trace order
-is ``bin_destinations``'."""
+is ``bin_destinations``'. Under ``rng_impl="rbg"`` every draw kernel's
+rbg mode (Philox4x32-10) is bit-identical to its plain version, at sizes
+with n % 4 != 0, with a key whose counter carries and with ray_index
+counters."""
 
 from pathlib import Path
 
@@ -676,3 +679,127 @@ def test_sorted_frame_matches_cpu_plain(dev, mega):
     unsorted = image(cfg.replace(ray_bin_bounces=(None, None)), "cuda")
     np.testing.assert_array_equal(card.view(np.uint32),
                                   unsorted.view(np.uint32))
+
+
+# rng_impl="rbg": each kernel's rbg mode against its plain version (the int64
+# Philox of rng.py), bit for bit. A key whose 128-bit counter carries out of
+# word 0 at the third block, and sizes with n % 4 != 0.
+CARRY_KEY = np.array([0x12345678, 0x9ABCDEF0, 0xFFFFFFFE, 0xFFFFFFFF],
+                     np.uint32)
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (1001,), (2_073_601,),
+                                   (5, 135, 16)])
+@pytest.mark.parametrize("carry", [False, True], ids=["seed", "carry"])
+def test_rbg_uniform_kernel_bit_identical(dev, shape, carry):
+    key = CARRY_KEY if carry else rng.fold_in(rng.key(12, "rbg"), shape[0])
+    before = dict(_build.LAUNCHES)
+    got = rng.uniform(key, shape, device=dev)
+    assert _build.LAUNCHES["uniform_rbg"] == before["uniform_rbg"] + 1
+    assert _build.LAUNCHES["uniform"] == before["uniform"]
+    want = rng.uniform_plain(key, shape, device=dev)
+    assert got.shape == want.shape == shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ROWS plus sizes with n % 4 != 0: row-major, the roulette groups of
+# rr_step and ray in rows whose width is not a multiple of 4.
+RBG_ROWS = dict(ROWS, odd_step=(61, 43, None, 0, 1, 5, "step", True),
+                odd_ray=(61, 43, None, 0, 3, 5, "ray", True))
+
+
+@pytest.mark.parametrize("case", list(RBG_ROWS) + ["carry"])
+def test_rbg_bounce_rows_kernel_bit_identical(dev, case):
+    W, H, rows, row0, spp, nb, group, rr = RBG_ROWS.get(case,
+                                                        ROWS["main_step"])
+    cfg = RenderConfig(width=W, height=H, spp=spp, bounces=nb,
+                       tracer="pallas", rr_group=group, russian_roulette=rr,
+                       rng_impl="rbg")
+    h = H if rows is None else rows
+    blocked = h % 8 == 0 and W % 16 == 0
+    k_bounce = CARRY_KEY if case == "carry" else \
+        rng.split(rng.key(31, "rbg"), 3)[2]
+    before = _build.LAUNCHES["bounce_rows_rbg"]
+    got = bounce_rows(k_bounce, cfg, h, row0, blocked, dev)
+    assert _build.LAUNCHES["bounce_rows_rbg"] == before + 1
+    want = bounce_rows_plain(k_bounce, cfg, h, row0, blocked, dev)
+    assert got.shape == want.shape == (nb, 5, spp * h * W)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+RBG_CAMERA = dict(CAMERA, odd=(61, 43, None, 0, 1, "pallas", 0.15),
+                  odd_pixel_order=(61, 43, None, 0, 2, "brute", 0.15))
+
+
+@pytest.mark.parametrize("case", list(RBG_CAMERA))
+def test_rbg_camera_rays_kernel_bit_identical(dev, case):
+    W, H, rows, row0, spp, tracer, ap = RBG_CAMERA[case]
+    cfg = RenderConfig(width=W, height=H, spp=spp, tracer=tracer,
+                       rng_impl="rbg")
+    h = H if rows is None else rows
+    blocked = tracer == "pallas" and h % 8 == 0 and W % 16 == 0
+    cam = Camera.create(position=(0.3, 1.5, -6.0), look_at=(0.0, 1.0, 0.0),
+                        fov_y_deg=55.0, aspect=W / H, aperture=ap,
+                        focus_dist=5.5)
+    key = rng.key(40 + list(RBG_CAMERA).index(case), "rbg")
+    before = _build.LAUNCHES["camera_rbg"]
+    ro, rd, k_bounce = _camera_rays(cam, key, cfg, h, W, spp, row0, blocked,
+                                    dev)
+    assert _build.LAUNCHES["camera_rbg"] == before + 1
+    po, pd = camera_rays_plain(cam, key, cfg, h, W, spp, row0, blocked, dev)
+    np.testing.assert_array_equal(k_bounce, rng.split(key, 3)[2])
+    for a, b in zip(ro + rd, po + pd):
+        assert a.shape == b.shape == (spp * h * W,) and a.is_contiguous()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("impl", ["int8x8", "bf16"])
+@pytest.mark.parametrize("mode", list(SKY_MODES) + ["odd_n", "carry"])
+def test_rbg_sky_tap_kernel_bit_identical(dev, impl, mode):
+    scene = fixtures.bench_scene(2000).to(dev)
+    hw = scene.skybox.shape[:2]
+    with_index, lattice = SKY_MODES.get(mode, (False, None))
+    rad, sky_e, sky_d, idx = _sky_inputs(dev, 5, with_index)
+    if mode == "odd_n":     # n % 4 == 3 and rows that are not 16-byte aligned
+        rad, sky_e, sky_d = (tuple(c[1:] for c in v)
+                             for v in (rad, sky_e, sky_d))
+    keys = (CARRY_KEY, rng.key(6, "rbg")) if mode == "carry" else \
+        (rng.key(5, "rbg"), rng.key(6, "rbg"))
+    name = "env_planes_rbg" if impl == "bf16" else "env_rbg"
+    before = _build.LAUNCHES[name]
+    got = sky_tap(hw, scene.skybox_rgbe, tuple(r.clone() for r in rad), sky_e,
+                  sky_d, keys, ray_index=idx, lattice=lattice, impl=impl)
+    assert _build.LAUNCHES[name] == before + 1
+    want = sky_tap_plain(hw, scene.skybox_rgbe, tuple(r.clone() for r in rad),
+                         sky_e, sky_d, keys, ray_index=idx, lattice=lattice,
+                         impl=impl)
+    for a, b, r in zip(got, want, rad):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert (a != r).float().mean().item() > 0.9
+
+
+def test_rbg_frame_on_card(dev, monkeypatch):
+    # The main path under rbg: one launch a frame of the camera-ray,
+    # uniform-row, path and sky-tap kernels, no urt_uniform; at most twice
+    # threefry's seven host hashes a step (both halves); the image within
+    # RMSE 1e-3 of the CPU's plain versions, as test_sorted_frame_... holds
+    # threefry frames.
+    cfg = RenderConfig(width=64, height=48, bounces=8, tracer="pallas",
+                       rr_group="step", wavefront=True, rng_impl="rbg")
+    scene, cam = fixtures.bench_scene(2000), fixtures.bench_camera(64 / 48)
+    r = Renderer(scene, cam, cfg, seed=0, device="cuda").step(1)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    calls, hash_ = [], rng.threefry2x32
+    monkeypatch.setattr(rng, "threefry2x32",
+                        lambda *a: calls.append(a) or hash_(*a))
+    r.step(1)
+    monkeypatch.undo()
+    la = dict(_build.LAUNCHES)
+    assert len(calls) == 14, len(calls)
+    assert (la["camera_rbg"], la["bounce_rows_rbg"], la["path"],
+            la["env_rbg"]) == (1, 1, 1, 1), la
+    assert sum(la.values()) == 4, la      # no urt_uniform, no threefry mode
+    cpu = Renderer(scene, cam, cfg, seed=0, device="cpu").step(1).step(1)
+    assert r._key.shape == (4,) and np.array_equal(r._key, cpu._key)
+    assert np.isfinite(r.image).all() and rmse(r.image, cpu.image) < 1e-3

@@ -140,7 +140,7 @@ def test_renderer_lifecycle(tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    pytest.param(dict(rng_impl="rbg"), ValueError, id="kw0"),
+    pytest.param(dict(rng_impl="philox4x32"), ValueError, id="kw0"),
     pytest.param(dict(rr_group="tile"), ValueError, id="kw4"),
 ])
 def test_config_rejects_unported_knobs(kw, exc):

@@ -176,11 +176,12 @@ def test_bounce_args_mirror_the_header():
                         re.M)
     got = [(name, ty) for name, ty in _build.BounceArgs._fields_]
     assert [name for _, name, _ in fields] == [name for name, _ in got]
-    assert [name for _, name, _ in fields[:2]] == ["k0", "k1"]
-    assert all(ty == "unsigned int" and not arr for ty, _, arr in fields[:2])
-    assert all(ty.__name__ == "c_uint" for _, ty in got[:2])
-    assert all(ty == "int" and not arr for ty, _, arr in fields[2:])
-    assert all(ty.__name__ == "c_int" for _, ty in got[2:])
+    # k_bounce's four words (threefry reads k0 and k1), then ints.
+    assert [name for _, name, _ in fields[:4]] == ["k0", "k1", "k2", "k3"]
+    assert all(ty == "unsigned int" and not arr for ty, _, arr in fields[:4])
+    assert all(ty.__name__ == "c_uint" for _, ty in got[:4])
+    assert all(ty == "int" and not arr for ty, _, arr in fields[4:])
+    assert all(ty.__name__ == "c_int" for _, ty in got[4:])
     assert re.search(r"#define URT_MAX_BOUNCES (\d+)", src).group(1) == str(
         _build.MAX_BOUNCES)
 

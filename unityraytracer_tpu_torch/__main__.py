@@ -28,8 +28,9 @@ messages and exit codes. Where the two differ:
     every CUDA device (``parallel/sharding.make_mesh``), or over the one
     ``--device`` names when it is not the card. ``preview --shard`` returns
     2 with the JAX message.
-  * ``--rng rbg`` raises as ``RenderConfig`` does: its bits depend on the
-    XLA backend and cannot be reproduced.
+  * ``--rng rbg`` draws the JAX package's rbg streams as XLA draws them on
+    the CPU (a TPU draws other bits for the same key); another name raises
+    as ``RenderConfig`` does.
   * ``info`` prints the torch device (its name, and how many there are) in
     place of a JAX backend.
   * There is no compile cache to enable: the kernels are built once into
@@ -137,7 +138,8 @@ def _add_common(p):
                    help="brute|bvh|cluster|pallas (default: pallas, the "
                         "CUDA kernels)")
     p.add_argument("--rng", default="threefry2x32",
-                   help="threefry2x32 (rbg cannot be reproduced off XLA)")
+                   help="threefry2x32|rbg (rbg: the JAX package's bits on "
+                        "the CPU, not the TPU's)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bands", type=int, default=None,
                    help="render each frame as N band dispatches (bounds "

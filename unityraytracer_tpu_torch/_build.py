@@ -33,9 +33,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
 
 # "env" and "env_planes" count the sky-tap kernel by its fetch: the packed
-# words or the byte planes.
+# words or the byte planes. The draw kernels' rbg modes are kernels of their
+# own, counted under the same names with "_rbg" appended.
 LAUNCHES = {"path": 0, "trace": 0, "env": 0, "env_planes": 0, "uniform": 0,
-            "bounce_rows": 0, "camera": 0, "atrous": 0}
+            "bounce_rows": 0, "camera": 0, "atrous": 0, "env_rbg": 0,
+            "env_planes_rbg": 0, "uniform_rbg": 0, "bounce_rows_rbg": 0,
+            "camera_rbg": 0}
 # Bounces whose keys the uniform-row kernel's prologue holds
 # (URT_MAX_BOUNCES in uniform_kernel.cu).
 MAX_BOUNCES = 32
@@ -66,32 +69,36 @@ class SceneArgs(ctypes.Structure):
 
 class BounceArgs(ctypes.Structure):
     """Mirror of ``struct BounceArgs`` in csrc/uniform_kernel.cu: the bounce
-    key k_bounce (the kernel derives the per-bounce keys from it) and the
-    ray lattice of one frame's uniform rows, handed to the kernel by
-    value."""
+    key k_bounce (the kernel derives the per-bounce keys from it; words 2
+    and 3 and ``rbg`` for an rbg key) and the ray lattice of one frame's
+    uniform rows, handed to the kernel by value."""
 
     _fields_ = [
         ("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32),
+        ("k2", ctypes.c_uint32), ("k3", ctypes.c_uint32),
         ("n", ctypes.c_int), ("nb", ctypes.c_int), ("h", ctypes.c_int),
         ("W", ctypes.c_int), ("row0", ctypes.c_int), ("Hg", ctypes.c_int),
         ("Wg", ctypes.c_int), ("blocked", ctypes.c_int),
         ("rr_step", ctypes.c_int), ("rr_lo", ctypes.c_int),
-        ("rr_hi", ctypes.c_int),
+        ("rr_hi", ctypes.c_int), ("rbg", ctypes.c_int),
     ]
 
 
 class CameraArgs(ctypes.Structure):
     """Mirror of ``struct CameraArgs`` in csrc/camera_kernel.cu: the frame
-    key, the ray lattice and the camera of one launch of the camera-ray
-    kernel, handed to the kernel by value."""
+    key (words 2 and 3 and ``rbg`` for an rbg key), the ray lattice and the
+    camera of one launch of the camera-ray kernel, handed to the kernel by
+    value."""
 
     _fields_ = [
         ("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32),
+        ("k2", ctypes.c_uint32), ("k3", ctypes.c_uint32),
         ("n", ctypes.c_int), ("h", ctypes.c_int), ("W", ctypes.c_int),
         ("H", ctypes.c_int), ("row0", ctypes.c_int), ("blocked", ctypes.c_int),
         ("pixel_order", ctypes.c_int), ("m", ctypes.c_float * 12),
         ("thf", ctypes.c_float), ("thf_aspect", ctypes.c_float),
         ("focus", ctypes.c_float), ("aperture", ctypes.c_float),
+        ("rbg", ctypes.c_int),
     ]
 
 
@@ -166,9 +173,9 @@ def lib() -> ctypes.CDLL:
         u32 = ctypes.c_uint32
         so.urt_trace_hits.argtypes = [p] * 8 + [i, i, i, p, p]
         so.urt_path_trace.argtypes = [p] * 9 + [i] * 8 + [p, p]
-        so.urt_sky_tap.argtypes = [p] * 10 + [i, p, i, i] + [u32] * 4 + [
-            p, i, i, i, p]
-        so.urt_uniform.argtypes = [u32, u32, p, ctypes.c_longlong, p]
+        so.urt_sky_tap.argtypes = [p] * 10 + [i, p, i, i] + [u32] * 8 + [
+            i, p, i, i, i, p]
+        so.urt_uniform.argtypes = [u32] * 4 + [i, p, ctypes.c_longlong, p]
         so.urt_bounce_rows.argtypes = [p, p, p]
         so.urt_camera_rays.argtypes = [p, p, p]
         f32 = ctypes.c_float

@@ -19,6 +19,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+# The rng_impl values, in rng.py's terms: a key of 2 words or of 4.
+IMPLS = ("threefry2x32", "rbg")
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -68,8 +71,16 @@ class RenderConfig:
         fold_in(frame key, band). Matches the whole frame in distribution.
         With tracer="pallas" keep band heights multiples of 8 (the 8x16
         pixel blocking).
-      rng_impl: only "threefry2x32" (``rng.py``, bit-exact with jax.random).
-        "rbg" bits depend on the XLA backend and cannot be reproduced.
+      rng_impl: "threefry2x32" (the default) or "rbg", the JAX package's
+        two values (``rng.py``, bit-exact with jax.random). Under "rbg" the
+        keys are derived with threefry on each half of a 4-word key and the
+        bits are Philox4x32-10, which is what XLA's RngBitGenerator draws
+        on the CPU: the port's "rbg" bits equal the JAX package's on the
+        CPU, while a TPU draws other bits for the same key (the JAX
+        config's PORTABILITY note). Streams are identical across tracers
+        for a given key under either value; they differ between the two,
+        which changes the noise pattern, not the estimator. Any other name
+        raises ``ValueError``.
     """
 
     width: int = 256
@@ -96,10 +107,10 @@ class RenderConfig:
     def __post_init__(self):
         if self.tracer not in ("brute", "bvh", "cluster", "pallas"):
             raise ValueError(f"unknown tracer {self.tracer!r}")
-        if self.rng_impl != "threefry2x32":
+        if self.rng_impl not in IMPLS:
             raise ValueError(
-                f"rng_impl={self.rng_impl!r}: the port reproduces only "
-                "threefry2x32 (rbg bits depend on the XLA backend)")
+                f"unknown rng_impl {self.rng_impl!r}: the port draws "
+                f"{' and '.join(map(repr, IMPLS))}")
         if self.rr_group not in ("ray", "step"):
             raise ValueError(f"unknown rr_group {self.rr_group!r}")
 

@@ -24,7 +24,6 @@ from __future__ import annotations
 import weakref
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .. import _build, rng
@@ -102,7 +101,7 @@ def sample_skybox_tap(skybox_hw, packed, rd: Vec3, u1, u2,
 
 def sky_counters(n: int, ray_index=None, lattice=None,
                  device=None) -> torch.Tensor:
-    """(n,) int64 threefry counter of each ray's sky draws: ``ray_index``
+    """(n,) int64 counter of each ray's sky draws: ``ray_index``
     when given, else the ray's own index, or with ``lattice=(h, W, spp)``
     (rays in pixel order at a size that tiles into 8x16 blocks) the ray's
     block slot, as ``render._draw_fn``'s ``to_pixel_order`` assigns it."""
@@ -119,8 +118,9 @@ def sky_counters(n: int, ray_index=None, lattice=None,
 def sky_tap_plain(skybox_hw, packed, radiance: Vec3, sky_e: Vec3,
                   sky_d: Vec3, keys, ray_index=None, lattice=None,
                   impl: Optional[str] = None) -> Vec3:
-    """Plain version of ``sky_tap``: the int64 threefry draws of
-    ``rng.uniform_at_plain`` at ``sky_counters``, ``sample_skybox_tap``
+    """Plain version of ``sky_tap``: the int64 draws of
+    ``rng.uniform_at_plain`` (threefry or rbg, by the keys) at
+    ``sky_counters``, ``sample_skybox_tap``
     and the compose, into the radiance rows in place."""
     c = sky_counters(sky_d[0].shape[0], ray_index, lattice, sky_d[0].device)
     u1, u2 = (rng.uniform_at_plain(k, c) for k in keys)
@@ -150,9 +150,10 @@ def sky_tap(skybox_hw, packed, radiance: Vec3, sky_e: Vec3, sky_d: Vec3,
     ``radiance[k] += sky_e[k] * tap[k]`` in place, the tap taken along
     ``sky_d``; returns the radiance rows.
 
-    Ray i's draws u1, u2 are the threefry uniforms of ``keys[0]`` and
-    ``keys[1]`` at its counter (``sky_counters``): i, ``ray_index[i]``
-    ((n,) int64), or its block slot in the ``lattice=(h, W, spp)``.
+    Ray i's draws u1, u2 are the uniforms of ``keys[0]`` and ``keys[1]``
+    (two threefry keys or two rbg keys) at its counter
+    (``sky_counters``): i, ``ray_index[i]`` ((n,) int64), or its block slot
+    in the ``lattice=(h, W, spp)``.
     ``packed``: the (H*W,) int32 RGBE plane; ``impl`` (default ``ENV_IMPL``)
     picks the fetch. For CUDA tensors one launch of the sky-tap kernel, with
     the keys passed by value; for CPU tensors ``sky_tap_plain``."""
@@ -182,13 +183,17 @@ def sky_tap(skybox_hw, packed, radiance: Vec3, sky_e: Vec3, sky_d: Vec3,
                              "into 8x16 blocks")
     planes = impl == "bf16"
     table = _planes_of(packed, H, W) if planes else packed
-    k = [int(w) for key in keys for w in np.asarray(key, np.uint32)]
+    (w1, rbg1), (w2, rbg2) = (rng.kernel_words(k) for k in keys)
+    if rbg1 != rbg2:
+        raise ValueError("the sky tap's two keys are of two rng impls")
+    # Threefry's two keys are words 0-1 and 2-3; rbg's 0-3 and 4-7.
+    k = (*w1, *w2) if rbg1 else (*w1[:2], *w2[:2], 0, 0, 0, 0)
     code = _build.lib().urt_sky_tap(
         *(r.data_ptr() for r in (*radiance, *sky_e, *sky_d)),
         table.data_ptr(), int(planes), rgbe_scale(dev).data_ptr(), H, W, *k,
-        ray_index.data_ptr() if ray_index is not None else None, lat_h,
+        rbg1, ray_index.data_ptr() if ray_index is not None else None, lat_h,
         lat_w, n, _build.stream_ptr(dev))
-    name = "env_planes" if planes else "env"
+    name = ("env_planes" if planes else "env") + ("_rbg" if rbg1 else "")
     _build.LAUNCHES[name] += 1
     _build.check(code, name)
     return radiance

@@ -254,7 +254,7 @@ class ShardedRenderer(PreviewExportMixin):
             replicas = {d: KernelScene.create(on[d], accel, d)
                         for d in on} if accel is not None else {}
             self.accel = [replicas.get(d) for d in shards]
-        self._key = rng.key(seed)
+        self._key = rng.key(seed, config.rng_impl)
         self.state = create_sharded_state(config, mesh, mode)
         self.stats = {}
 
@@ -349,18 +349,20 @@ class ShardedRenderer(PreviewExportMixin):
 
     def load_state(self, path: str) -> "ShardedRenderer":
         """Resume from a checkpoint of either package; the image is split
-        into this mesh's bands."""
+        into this mesh's bands. Key data of the other ``rng_impl`` raises
+        ``ValueError``."""
         with np.load(path) as data:
             accum = np.asarray(data["accum"], np.float32)
             want = (self.config.height, self.config.width, 3)
             if accum.shape != want:
                 raise ValueError(f"checkpoint image {accum.shape} does not "
                                  f"match the config's {want}")
+            key = rng.wrap_key_data(data["key"], self.config.rng_impl)
             devs = _band_devices(self.mesh, self.mode)
             h = self.config.height // len(devs)
             self.state = ShardedState(
                 bands=[torch.as_tensor(accum[i * h:(i + 1) * h], device=d)
                        for i, d in enumerate(devs)],
                 n_samples=int(data["n_samples"]))
-            self._key = np.asarray(data["key"], np.uint32).reshape(2)
+            self._key = key
         return self

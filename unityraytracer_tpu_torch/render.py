@@ -9,8 +9,8 @@ The port of the JAX package's ``render.py``:
 * ``render_sample_mega``: the same frame through the path kernel — every
   bounce in one launch, fed camera rays that ``_camera_rays`` makes from the
   frame key in one launch of the camera-ray kernel and the same uniform
-  rows, which ``bounce_rows`` draws in one launch of the threefry kernel
-  (both kernels derive their keys on the card); with ``split_bounce``,
+  rows, which ``bounce_rows`` draws in one launch of the uniform-row kernel
+  (both kernels derive their keys on the card, in either ``rng_impl``); with ``split_bounce``,
   the deep bounces on a compact buffer of the surviving rays
   (``_path_trace_split``); then the sky tap, whose kernel draws, picks,
   fetches and composes into the radiance in one launch (``_env_tap``).
@@ -174,7 +174,7 @@ def camera_draws_plain(key, h: int, W: int, spp: int, blocked: bool,
                        device):
     """The camera's four uniform rows in ray order: jitter x and y at keys
     fold_in(k_jit, 0 | 1), the lens pair at fold_in(k_lens, 0 | 1), where
-    k_jit, k_lens = split(key, 3)[:2], each drawn with the int64 hash of
+    k_jit, k_lens = split(key, 3)[:2], each drawn with the int64 bits of
     ``rng.uniform_plain`` and moved to the ray's slot by ``_draw_fn``."""
     N = spp * h * W
     draw = _draw_fn(h, W, spp, blocked)
@@ -204,8 +204,8 @@ def camera_rays_plain(camera: Camera, key, cfg: RenderConfig, h: int, W: int,
 
 def camera_args(camera: Camera, key, cfg: RenderConfig, h: int, W: int,
                 spp: int, row0: int, blocked: bool) -> _build.CameraArgs:
-    """The camera-ray kernel's by-value arguments: the frame key's words,
-    the ray lattice and the camera rounded to float32 as
+    """The camera-ray kernel's by-value arguments: the frame key's words
+    (four, and ``rbg``, for an rbg key), the ray lattice and the camera rounded to float32 as
     ``camera_rays_soa`` rounds it (tan_half_fov * aspect formed in
     float32)."""
     N = spp * h * W
@@ -214,7 +214,7 @@ def camera_args(camera: Camera, key, cfg: RenderConfig, h: int, W: int,
                          "indexing")
     f32 = np.float32
     a = _build.CameraArgs()
-    a.k0, a.k1 = rng._words(key)
+    (a.k0, a.k1, a.k2, a.k3), a.rbg = rng.kernel_words(key)
     a.n, a.h, a.W, a.H, a.row0 = N, h, W, cfg.height, row0
     a.blocked = int(blocked)
     a.pixel_order = int(_pixel_order(h, W, blocked))
@@ -244,8 +244,9 @@ def _camera_rays(camera, key, cfg, h, W, spp, row0, blocked, device):
     out = torch.empty((6, args.n), dtype=torch.float32, device=device)
     code = _build.lib().urt_camera_rays(ctypes.byref(args), out.data_ptr(),
                                         _build.stream_ptr(device))
-    _build.LAUNCHES["camera"] += 1
-    _build.check(code, "camera")
+    name = "camera_rbg" if args.rbg else "camera"
+    _build.LAUNCHES[name] += 1
+    _build.check(code, name)
     return (out[0], out[1], out[2]), (out[3], out[4], out[5]), k_bounce
 
 
@@ -370,7 +371,8 @@ def _rr_bounces(cfg: RenderConfig):
 def bounce_rows_plain(k_bounce, cfg: RenderConfig, h: int, row0: int,
                       blocked: bool, device) -> torch.Tensor:
     """Plain version of ``bounce_rows``: bounce by bounce, the int64
-    threefry draws of ``rng.uniform_plain`` and torch's log2, cos and sin.
+    draws of ``rng.uniform_plain`` (threefry or rbg, by the key) and
+    torch's log2, cos and sin.
     The draws are block-native (``_draw_fn`` is the identity on the
     megakernel's layout), so u_r, u1 and u2 of ray i sit at counter i."""
     W, spp = cfg.width, cfg.spp
@@ -398,10 +400,10 @@ def bounce_rows_plain(k_bounce, cfg: RenderConfig, h: int, row0: int,
 
 def bounce_args(k_bounce, cfg: RenderConfig, h: int, row0: int,
                 blocked: bool) -> _build.BounceArgs:
-    """The threefry kernel's by-value arguments for one frame's uniform
-    rows: k_bounce's two words (the kernel derives the keys of
-    ``rng.bounce_keys`` from them) and the ray lattice. No hash runs
-    here."""
+    """The uniform-row kernel's by-value arguments for one frame's uniform
+    rows: k_bounce's words (two, or four and ``rbg`` for an rbg key; the
+    kernel derives the keys of ``rng.bounce_keys`` from them) and the ray
+    lattice. No hash runs here."""
     if cfg.bounces > _build.MAX_BOUNCES:
         raise ValueError(f"{cfg.bounces} bounces: the uniform-row kernel "
                          f"takes at most {_build.MAX_BOUNCES}")
@@ -410,7 +412,8 @@ def bounce_args(k_bounce, cfg: RenderConfig, h: int, row0: int,
         raise ValueError(f"{cfg.spp * h * W} rays exceed the uniform-row "
                          "kernel's 32-bit indexing")
     args = _build.BounceArgs()
-    args.k0, args.k1 = rng._words(k_bounce)
+    (args.k0, args.k1, args.k2, args.k3), args.rbg = rng.kernel_words(
+        k_bounce)
     args.n, args.nb, args.h, args.W, args.row0 = (cfg.spp * h * W,
                                                   cfg.bounces, h, W, row0)
     args.Hg, args.Wg = (cfg.height + 7) // 8, (W + 127) // 128
@@ -426,8 +429,9 @@ def bounce_rows(k_bounce, cfg: RenderConfig, h: int, row0: int,
     rows from ``row0``: roulette u_r, log2 max(u1, 1e-12), cos 2 pi u2,
     sin 2 pi u2 and the Russian-roulette draw (1 outside the bounces that
     draw it), per ray in 8x16 block order when ``blocked``. For a CUDA
-    device in one launch of the threefry kernel, with k_bounce passed by
-    value (no host-to-device copy); for the CPU, ``bounce_rows_plain``."""
+    device in one launch of the uniform-row kernel in the key's mode, with
+    k_bounce passed by value (no host-to-device copy); for the CPU,
+    ``bounce_rows_plain``."""
     device = torch.device(device)
     if device.type == "cpu":
         return bounce_rows_plain(k_bounce, cfg, h, row0, blocked, device)
@@ -438,8 +442,9 @@ def bounce_rows(k_bounce, cfg: RenderConfig, h: int, row0: int,
                       device=device)
     code = _build.lib().urt_bounce_rows(ctypes.byref(args), uni.data_ptr(),
                                         _build.stream_ptr(device))
-    _build.LAUNCHES["bounce_rows"] += 1
-    _build.check(code, "bounce_rows")
+    name = "bounce_rows_rbg" if args.rbg else "bounce_rows"
+    _build.LAUNCHES[name] += 1
+    _build.check(code, name)
     return uni
 
 
@@ -812,7 +817,7 @@ class Renderer(PreviewExportMixin):
                 "device='cpu' to render with the plain versions")
         self.camera = camera
         self.config = config
-        self._key = rng.key(seed)
+        self._key = rng.key(seed, config.rng_impl)
         self.stats = {}
         self.set_scene(scene, accel)
 
@@ -942,15 +947,18 @@ class Renderer(PreviewExportMixin):
         return path
 
     def load_state(self, path: str) -> "Renderer":
-        """Resume from a checkpoint of either package (same key chain)."""
+        """Resume from a checkpoint of either package (same key chain). Key
+        data of the other ``rng_impl`` raises ``ValueError``, as
+        ``jax.random.wrap_key_data`` refuses it."""
         with np.load(path) as data:
             accum = np.asarray(data["accum"], np.float32)
             want = (self.config.height, self.config.width, 3)
             if accum.shape != want:
                 raise ValueError(f"checkpoint image {accum.shape} does not "
                                  f"match the config's {want}")
+            key = rng.wrap_key_data(data["key"], self.config.rng_impl)
             self.state = RenderState(
                 accum=torch.as_tensor(accum, device=self.device),
                 n_samples=int(data["n_samples"]))
-            self._key = np.asarray(data["key"], np.uint32).reshape(2)
+            self._key = key
         return self
