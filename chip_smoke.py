@@ -190,6 +190,43 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches on the rbg main path (``uniform_rbg``: the rbg
    ``megakernel=False`` frame).
 
+12. scenes of 100k to 2M triangles (``scale_phase``), the sizes the JAX
+   package serves with its sharded tiers (``SCALING_r05.json``), through
+   the same kernels:
+   a. the ladder (``LADDER``): ``bench_scene(n)`` for 100k, 200k, 400k, 1M
+      and 2M triangles under phase 11b's rbg main path at 1920x1080 x 8:
+      per rung the host seconds of the scene build and of
+      ``build_cluster_accel`` (native), of ``KernelScene.create``, the
+      scene's bytes against the L2, the LBVH's depth, 12 ``step(1)``
+      frames (median, min, max, Mrays/s) each launching one path, sky-tap,
+      camera-ray and uniform-row kernel and nothing else, the path kernel
+      alone by CUDA events with its box and triangle tests a ray
+      (``counts=``) and its bound, the camera rays' tests and hit fraction
+      through the closest-hit kernel, peak device memory, no traversal
+      overflow and a finite image; at 2M a ``megakernel=False`` frame in
+      turns with the path-kernel frame, and on ``SLICE`` rays from the
+      middle of that rung's own frame the closest-hit kernel against
+      ``closest_hit_plain`` and the path kernel against
+      ``path_trace_plain``, bit for bit;
+   b. gate1m (``examples/gate_scale_tiers.py:94-101``): 1M triangles,
+      192x96, 4 bounces, ``dispatch_bands=4``, rbg, seed 7: the
+      ``"pallas"`` image against ``"brute"`` (RMSE < 1e-3) and
+      ``"cluster"``, with the gate's report;
+   c. gate2m_b1 (``:102-107``): 2M triangles, 1 bounce, 4 bands: the
+      ``"pallas"`` image bit-exact with ``"brute"``, and the camera rays'
+      hit records of the closest-hit kernel bit-equal to ``trace_brute``'s;
+   d. gate2m_part: 2M triangles, 4 bounces, ``ShardedRenderer(mode=
+      "scene")`` on ``[cuda:0] * 2`` and ``[cuda:0] * 4``, two partitions
+      of one Morton order: bit-identical images, the 4-shard image within
+      RMSE 1e-3 of one device's path-kernel frame, the frames in turns and
+      the combine's CUDA-event time.
+   The kernels line carries the ladder under the path kernel's
+   ``ladder``, and in each kernel's ``launches_by_path`` a ``"scale"``
+   path (the 12 frames of the 2M rung, which launch the main path's four
+   kernels and no closest-hit kernel) and one path for each gate run
+   (``scale_part4``: the closest-hit kernel in gate2m_part's four-shard
+   frame).
+
 Phase 3 also holds the path kernel's 16 resume-state rows against the plain
 version's (bit for bit, at 192x96 x 4 and on the 1080p x 8 subset with two
 bounces). Phases 3 to 9 run the default config, so the path kernel sorts
@@ -243,6 +280,19 @@ N_TRIS = 100_000
 # Triangle counts at which phase 9 times the LBVH build with and without
 # the native host library.
 NATIVE_TRIS = (N_TRIS, 1_000_000)
+# Phase 12's ladder of bench_scene sizes (SCALING_r05.json's rungs: 101k,
+# 201k, 401k, 1.0M and 2.0M triangles after the icosphere rounding).
+LADDER = (N_TRIS, 200_000, 400_000, 1_000_000, 2_000_000)
+# Rays from the middle of the last rung's frame held against the plain
+# versions (trace_brute over every triangle: about 7 s a bounce at 2M).
+SLICE = 16_384
+# The scale gates' frame (examples/gate_scale_tiers.py:52-62): 192x96, the
+# bench camera, bench.py's streams, seed 7.
+GATE = dict(width=192, height=96, spp=1, ray_chunk=4096, wavefront=True,
+            rr_group="step", rng_impl="rbg")
+GATE_CAM = dict(position=(0.0, 14.0, -42.0), look_at=(0.0, 2.0, 0.0),
+                fov_y_deg=60.0)
+GATE_SEED = 7
 MAIN = dict(width=1920, height=1080, spp=1, bounces=8, tracer="pallas",
             wavefront=True, rr_group="step")
 # The reference's quality preset (SampleScene.unity:433-434: 10 bounces,
@@ -1965,6 +2015,337 @@ def rbg_phase(counted, bits_equal, scene_np, ks, kernels, block_ops) -> dict:
     return by_path
 
 
+def lbvh_depth(accel) -> int:
+    """Inner nodes on the longest root-to-leaf path of a ClusterAccel's
+    radix tree (host arrays; 0 for a single leaf)."""
+    import numpy as np
+
+    C = accel.num_clusters
+    if C < 2:
+        return 0
+    left = np.asarray(accel.node_left[:C - 1])
+    right = np.asarray(accel.node_right[:C - 1])
+    depth, level = 0, np.array([0])
+    while level.size:
+        depth += 1
+        kids = np.concatenate([left[level], right[level]])
+        level = kids[kids < C - 1]
+    return depth
+
+
+def gate_report(tag, img_a, img_b, **extra) -> dict:
+    """``examples/gate_scale_tiers.py:report``: the images' RMSE, largest
+    pixel difference, pixels off by more than 1e-2 and 1e-4, bit-exactness
+    and pixel count."""
+    import numpy as np
+
+    from unityraytracer_tpu_torch.utils.image import rmse
+
+    d = np.abs(img_a - img_b).max(axis=-1)
+    out = {"tag": tag, "rmse": float(rmse(img_a, img_b)),
+           "max_diff": float(d.max()), "bad_px_1e2": int((d > 1e-2).sum()),
+           "bad_px_1e4": int((d > 1e-4).sum()),
+           "bit_exact": bool(np.array_equal(img_a, img_b)),
+           "n_px": int(d.size), **extra}
+    log("12 RESULT " + json.dumps(out))
+    return out
+
+
+def scale_phase(counted, bits_equal, kernels) -> dict:
+    """Phase 12: scenes of 100k to 2M triangles on the card. The ladder of
+    rbg main-path frames at 1080p x 8 (``LADDER``), the 2M frame against
+    the per-bounce loop (``megakernel=False``) in turns, and the three
+    gates of ``examples/gate_scale_tiers.py`` at 192x96: gate1m (pallas
+    against brute and cluster at 1M, 4 bounces, 4 bands), gate2m_b1 (bounce
+    1 at 2M bit-exact, and the camera rays' hit records against
+    ``trace_brute``) and gate2m_part (``ShardedRenderer(mode="scene")`` on
+    two and four logical shards of one Morton order, bit-identical). Adds
+    the ladder to ``kernels["path"]`` and returns the launch counts of its
+    paths. Raises on any failure."""
+    import numpy as np
+    import torch
+
+    from unityraytracer_tpu_torch import (Camera, RenderConfig, Renderer,
+                                          _build, rng)
+    from unityraytracer_tpu_torch.models import fixtures
+    from unityraytracer_tpu_torch.ops.bvh import build_cluster_accel
+    from unityraytracer_tpu_torch.ops.cuda_path import (path_trace,
+                                                        path_trace_plain)
+    from unityraytracer_tpu_torch.ops.cuda_trace import (KernelScene,
+                                                         closest_hit_plain,
+                                                         trace_hits)
+    from unityraytracer_tpu_torch.parallel.scene_shard import allreduce_hit
+    from unityraytracer_tpu_torch.parallel.sharding import ShardedRenderer
+    from unityraytracer_tpu_torch.render import _frame_inputs
+    from unityraytracer_tpu_torch.utils.image import rmse
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = RenderConfig(**MAIN, rng_impl="rbg")
+    W, H, nb = cfg.width, cfg.height, cfg.bounces
+    n = W * H
+    cam = fixtures.bench_camera(aspect=W / H)
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    main_kernels = ("path", "env_rbg", "camera_rbg", "bounce_rows_rbg")
+    by_path, ladder, keep = {}, [], {}
+
+    def rows(h):
+        return torch.stack([h.t, *h.normal, *h.albedo, *h.specular,
+                            *h.emission, h.smoothness])
+
+    # 12a. The ladder.
+    for n_tris in LADDER:
+        t0 = time.perf_counter()
+        s_np = fixtures.bench_scene(n_tris=n_tris)
+        scene_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a_np = build_cluster_accel(s_np.triangles, cluster_size=64)
+        accel_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ks_n = KernelScene.create(s_np.to(dev), a_np, dev)
+        torch.cuda.synchronize()
+        create_s = time.perf_counter() - t0
+        sb, depth = scene_bytes(ks_n), lbvh_depth(a_np)
+        torch.cuda.reset_peak_memory_stats()
+        r = Renderer(s_np, cam, cfg, accel=ks_n, seed=0, device="cuda")
+        r.step(1)
+        frames, total = [], {k: 0 for k in _build.LAUNCHES}
+        for _ in range(12):
+            _, la = counted(lambda: r.step(1))
+            frames.append(r.stats["ms_per_frame"])
+            if any(la[k] != 1 for k in main_kernels) or sum(la.values()) != 4:
+                raise AssertionError(f"12a {n_tris} triangles: a frame "
+                                     f"launched {la}, expected one each of "
+                                     f"{main_kernels}")
+            for k in la:
+                total[k] += la[k]
+        _build.raise_on_overflow(dev)
+        peak = torch.cuda.max_memory_allocated()
+        img = r.image
+        if not (np.isfinite(img).all() and img.max() > 0):
+            raise AssertionError(f"12a {n_tris} triangles: non-finite or "
+                                 "black image")
+        ro, rd, uni, _, _ = _frame_inputs(r.scene, cam, rng.key(60, "rbg"),
+                                          cfg)
+        path_ms = cuda_ms(lambda: path_trace(ks_n, ro, rd, uni, cfg), 5, 1)
+        cnt = torch.empty((2, n), dtype=torch.int32, device=dev)
+        path_trace(ks_n, ro, rd, uni, cfg, counts=cnt)
+        _build.raise_on_overflow(dev)
+        tests = cnt.sum(dim=1, dtype=torch.int64).cpu().tolist()
+        # The camera rays alone (bounce 1) through the closest-hit kernel:
+        # how much of the growth in tests is the first bounce's.
+        h1 = trace_hits(ks_n, ro, rd, counts=cnt)
+        _build.raise_on_overflow(dev)
+        cam_tests = cnt.sum(dim=1, dtype=torch.int64).cpu().tolist()
+        cam_hit = float((h1.t < 1e30).float().mean())
+        slice_check = None
+        if n_tris == LADDER[-1]:
+            # Both kernels on this rung's own inputs: SLICE rays from the
+            # middle of the frame against the plain versions, bit for bit
+            # (the camera rays' 14 hit rows and winners; the path kernel's
+            # nine output rows over all eight bounces).
+            sl = slice(n // 2 - SLICE // 2, n // 2 + SLICE // 2)
+            cut = lambda v3: tuple(c[sl].contiguous() for c in v3)  # noqa: E731
+            t0 = time.perf_counter()
+            hp = closest_hit_plain(ks_n, cut(ro), cut(rd))
+            torch.cuda.synchronize()
+            hit_plain_s = time.perf_counter() - t0
+            same_hits = (bits_equal(rows(h1)[:, sl], rows(hp))
+                         and bool(torch.equal(h1.prim[sl], hp.prim)))
+            rk = path_trace(ks_n, ro, rd, uni, cfg)
+            t0 = time.perf_counter()
+            rp = path_trace_plain(ks_n, cut(ro), cut(rd),
+                                  uni[:, :, sl].contiguous(), cfg)
+            torch.cuda.synchronize()
+            path_plain_s = time.perf_counter() - t0
+            _build.raise_on_overflow(dev)
+            a = torch.stack([c[sl] for v3 in rk for c in v3])
+            b = torch.stack([c for v3 in rp for c in v3])
+            same_path = bits_equal(a, b)
+            slice_check = dict(
+                rays=SLICE, first_ray=sl.start,
+                hit_fraction=float((hp.t < 1e30).float().mean()),
+                hit_rows_bit_equal=same_hits, path_rows_bit_equal=same_path,
+                path_max_abs=float((a - b).abs().max()),
+                closest_hit_plain_s=hit_plain_s,
+                path_trace_plain_s=path_plain_s)
+            log(f"12a {s_np.num_triangles} triangles, {SLICE} rays of the "
+                "frame against the plain versions: "
+                + json.dumps(slice_check))
+            if not (same_hits and same_path):
+                raise AssertionError(f"12a {n_tris} triangles: kernels "
+                                     f"against plain {slice_check}")
+            del hp, rk, rp, a, b
+        del ro, rd, uni, cnt, h1
+        # Bytes: the rays and uniform rows read and nine rows written, and
+        # the scene bytes its tests touch (a box test reads 32 bytes of a
+        # 64-byte node or 24 of a leaf's 192 bytes of run boxes, taken as
+        # 32; a triangle test 48 bytes of float4 rows), each byte once: at
+        # most the scene's tables.
+        touched = tests[0] * 32 + tests[1] * 48
+        ray_bytes = n * (24 + nb * 20 + 36)
+        b_ms, b_by = bound(ray_bytes + min(sb, touched),
+                           tests[0] * FLOP_BOX + tests[1] * FLOP_TRI)
+        med = float(np.median(frames))
+        rung = dict(
+            n_tris=s_np.num_triangles, scene_s=scene_s, accel_s=accel_s,
+            kernel_scene_s=create_s, scene_bytes=sb, l2_bytes=l2,
+            scene_over_l2=sb / l2, lbvh_depth=depth, clusters=a_np.num_clusters,
+            frame_ms_median=med, frame_ms_min=min(frames),
+            frame_ms_max=max(frames), mrays_per_s=n * nb / med / 1e3,
+            launches_per_frame={k: v / 12 for k, v in total.items() if v},
+            path_kernel_ms=path_ms, box_per_ray=tests[0] / n,
+            tri_per_ray=tests[1] / n, camera_box_per_ray=cam_tests[0] / n,
+            camera_tri_per_ray=cam_tests[1] / n, camera_hit_fraction=cam_hit,
+            touched_bytes=touched,
+            path_bound_ms=b_ms, path_bound_by=b_by,
+            path_bound_share=b_ms / path_ms, peak_bytes=peak,
+            against_plain=slice_check)
+        log("12a rung " + json.dumps(rung))
+        ladder.append(rung)
+        by_path["scale"] = total
+        if n_tris in (1_000_000, 2_000_000):
+            keep[n_tris] = (s_np, ks_n)
+        if n_tris == LADDER[-1]:
+            # The per-bounce route at this size, in turns with the path
+            # kernel's frame.
+            rl = Renderer(s_np, cam, cfg.replace(megakernel=False),
+                          accel=ks_n, seed=0, device="cuda")
+            _, la = counted(lambda: rl.step(1))
+            by_path["scale_loop"] = la
+            if not (la["trace"] >= 1 and la["path"] == 0
+                    and np.isfinite(rl.image).all()):
+                raise AssertionError(f"12a megakernel=False at {n_tris}: "
+                                     f"{la}")
+            ab = {"path kernel": [], "megakernel=False": []}
+            for _ in range(3):
+                for tag, rr in (("path kernel", r), ("megakernel=False", rl)):
+                    rr.step(1)
+                    ab[tag].append(rr.stats["ms_per_frame"])
+            _build.raise_on_overflow(dev)
+            log(f"12a {s_np.num_triangles} triangles, frames in turns: "
+                + "; ".join(f"{k} {v}" for k, v in ab.items())
+                + f" ms; megakernel=False launches a frame {la}")
+            rung["loop_ms"] = ab["megakernel=False"]
+            del rl
+        del r, img
+        torch.cuda.empty_cache()
+    kernels["path"]["ladder"] = ladder
+
+    # The gates of examples/gate_scale_tiers.py at 192x96, seed 7.
+    gcam = Camera.create(**GATE_CAM, aspect=GATE["width"] / GATE["height"])
+
+    def gate_cfg(bounces, bands, tracer):
+        return RenderConfig(**GATE, bounces=bounces, tracer=tracer,
+                            dispatch_bands=bands)
+
+    def gate_render(s_np, ks_, c, tag):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rr, la = counted(lambda: Renderer(s_np, gcam, c, accel=ks_,
+                                          seed=GATE_SEED,
+                                          device="cuda").step(1))
+        s = time.perf_counter() - t0
+        by_path[f"scale_{tag}"] = la
+        log(f"12 {tag}: {s:.2f} s; launches {la}")
+        return rr.image
+
+    # 12b. gate1m: 4 bounces, 4 bands, pallas against brute and cluster.
+    s1, ks1 = keep[1_000_000]
+    img_p = gate_render(s1, ks1, gate_cfg(4, 4, "pallas"), "gate1m_pallas")
+    img_c = gate_render(s1, ks1, gate_cfg(4, 4, "cluster"), "gate1m_cluster")
+    img_b = gate_render(s1, ks1, gate_cfg(4, 4, "brute"), "gate1m_brute")
+    g1 = gate_report("gate1m_b4_vs_brute", img_p, img_b)
+    gate_report("gate1m_b4_vs_cluster", img_p, img_c)
+    if not (np.isfinite(img_p).all() and img_p.max() > 0
+            and g1["rmse"] < 1e-3):
+        raise AssertionError(f"12b gate1m: RMSE {g1['rmse']} against brute")
+    del img_p, img_c, img_b, s1, ks1
+    keep.pop(1_000_000)
+
+    # 12c. gate2m_b1: bounce 1 at 2M, 4 bands: pallas bit-exact with brute;
+    # the camera rays' hit records of the kernel equal trace_brute's.
+    s2, ks2 = keep[2_000_000]
+    img_p = gate_render(s2, ks2, gate_cfg(1, 4, "pallas"), "gate2m_b1_pallas")
+    img_c = gate_render(s2, ks2, gate_cfg(1, 4, "cluster"),
+                        "gate2m_b1_cluster")
+    img_b = gate_render(s2, ks2, gate_cfg(1, 4, "brute"), "gate2m_b1_brute")
+    g2 = gate_report("gate2m_bounce1_vs_brute", img_p, img_b)
+    gate_report("gate2m_bounce1_vs_cluster", img_p, img_c)
+    c1 = gate_cfg(1, None, "pallas")
+    ro, rd, _, _, _ = _frame_inputs(ks2.scene, gcam, rng.key(GATE_SEED,
+                                                             "rbg"), c1)
+    hk = trace_hits(ks2, ro, rd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp = closest_hit_plain(ks2, ro, rd)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    _build.raise_on_overflow(dev)
+    same_rows = bits_equal(rows(hk), rows(hp))
+    same_prim = bool(torch.equal(hk.prim, hp.prim))
+    hit_frac = float((hk.t < 1e30).float().mean())
+    log(f"12c hit records of {ro[0].shape[0]} camera rays at "
+        f"{s2.num_triangles} triangles: 14 rows bit-equal {same_rows}, "
+        f"prims equal {same_prim}, hit fraction {hit_frac:.4f}; "
+        f"trace_brute {brute_s:.2f} s")
+    if not (g2["bit_exact"] and same_rows and same_prim
+            and img_p.max() > 0):
+        raise AssertionError(f"12c gate2m_b1: image bit-exact "
+                             f"{g2['bit_exact']}, rows {same_rows}, prims "
+                             f"{same_prim}")
+    del img_p, img_c, img_b, hk, hp
+
+    # 12d. gate2m_part: 4 bounces through ShardedRenderer(mode="scene") on
+    # two and four logical shards of the card.
+    c4 = gate_cfg(4, None, "pallas")
+    imgs, srs = {}, {}
+    for shards in (2, 4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sr = ShardedRenderer(s2, gcam, c4, mesh=["cuda:0"] * shards,
+                             seed=GATE_SEED, mode="scene")
+        setup_s = time.perf_counter() - t0
+        _, la = counted(lambda: sr.step(1))
+        by_path[f"scale_part{shards}"] = la
+        imgs[shards] = sr.image
+        srs[shards] = sr
+        log(f"12d scene shards {shards}: set-up {setup_s:.2f} s, frame "
+            f"{sr.stats['ms_per_frame']:.2f} ms, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+            f"launches {la}")
+        if la["trace"] < shards or la["path"] != 0:
+            raise AssertionError(f"12d {shards} shards: launches {la}")
+    g3 = gate_report("gate2m_partition_2_vs_4", imgs[2], imgs[4])
+    # The sharded image against one device's path-kernel frame of the same
+    # key chain (the bounce loop's shading in torch against the kernel's):
+    # the repo's image bar.
+    g4 = gate_report("gate2m_part4_b4_vs_pallas", imgs[4], gate_render(
+        s2, ks2, c4, "gate2m_b4_pallas"))
+    sr = srs[4]
+    ro4 = tuple(c.contiguous() for c in ro)
+    hits = [trace_hits(ks_, ro4, rd) for ks_ in sr.accel]
+    combine_ms = cuda_ms(lambda: allreduce_hit(hits), 10, 2)
+    frame_ms = {}
+    for shards in (2, 4, 2, 4):
+        srs[shards].step(1)
+        frame_ms.setdefault(shards, []).append(
+            srs[shards].stats["ms_per_frame"])
+    _build.raise_on_overflow(dev)
+    log(f"12d frames in turns (ms): {frame_ms}; the combine of 4 shards' "
+        f"hits on {ro[0].shape[0]} rays {combine_ms:.4f} ms (CUDA events)")
+    if not (g3["bit_exact"] and np.isfinite(imgs[2]).all()
+            and imgs[2].max() > 0 and g4["rmse"] < 1e-3):
+        raise AssertionError(f"12d gate2m_part: 2 against 4 shards {g3}; "
+                             f"4 shards against one device {g4}")
+    del srs, sr, hits, imgs, ro, rd, ro4, keep
+    torch.cuda.empty_cache()
+    log(f"12 scale phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3017,6 +3398,9 @@ def main() -> int:
     by_path.update(rbg_phase(counted, bits_equal, scene_np, ks, kernels,
                              block_ops))
 
+    # 12. Scenes of 100k to 2M triangles: the ladder and the scale gates.
+    by_path.update(scale_phase(counted, bits_equal, kernels))
+
     for k in kernels:
         use = {"env_planes": "bf16", "trace": "preview",
                "atrous": "preview", "uniform": "loop",
@@ -3039,7 +3423,7 @@ def main() -> int:
             "bound_ms",
             "bound_by", "library_ms", "shape", "plain_shape", "sort_window",
             "ms_binned", "ms_unbinned", "binned_bit_equal", "binned_shape",
-            "sort_prologue_ms", "order_equal", "simt_bounce1")
+            "sort_prologue_ms", "order_equal", "simt_bounce1", "ladder")
     for v in kernels.values():
         v["library_ms"] = None     # no single PyTorch call computes these
     log(json.dumps({"kernels": [

@@ -64,6 +64,11 @@ from unityraytracer_tpu_torch.utils.image import rmse, ulp_distance
 pytestmark = pytest.mark.cuda
 
 GOLDEN = Path(__file__).resolve().parent / "golden_scene1.npz"
+# test_replace_and_skybox_lookups_on_card: the card's weights wy/wx against
+# the CPU's in ulps of H or W, and its bilinear lookup's relative error (an
+# H100 shows 1 ulp and 2.3e-5 on the test's 4096 directions).
+SKY_W_ULP = 2
+SKY_RTOL = 5e-5
 
 
 @pytest.fixture(scope="module")
@@ -803,3 +808,105 @@ def test_rbg_frame_on_card(dev, monkeypatch):
     cpu = Renderer(scene, cam, cfg, seed=0, device="cpu").step(1).step(1)
     assert r._key.shape == (4,) and np.array_equal(r._key, cpu._key)
     assert np.isfinite(r.image).all() and rmse(r.image, cpu.image) < 1e-3
+
+
+def test_large_scene_frame_and_hits_equal_brute(dev):
+    # A 400k-triangle scene (bench_scene's 401,920 triangles, the ladder's
+    # third rung) at 192x96 x 2 bounces under the gate's camera: the path
+    # kernel's rows with counts= equal its rows without, its counts lie
+    # between one box test and the exhaustive test of every triangle a
+    # bounce, and the camera rays' hit records (bounce 1) from the
+    # closest-hit kernel equal trace_brute's bit for bit, winners included.
+    s = fixtures.bench_scene(400_000)
+    ks = KernelScene.create(s, build_cluster_accel(s.triangles, 64), dev)
+    cfg = RenderConfig(width=192, height=96, bounces=2, tracer="pallas",
+                       rr_group="step", wavefront=True, rng_impl="rbg")
+    cam = Camera.create(position=(0.0, 14.0, -42.0), look_at=(0.0, 2.0, 0.0),
+                        fov_y_deg=60.0, aspect=2.0)
+    ro, rd, uni, _, _ = render._frame_inputs(ks.scene, cam,
+                                             rng.key(7, "rbg"), cfg)
+    n = ro[0].shape[0]
+    cnt = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    with_c = path_trace(ks, ro, rd, uni, cfg, counts=cnt)
+    without = path_trace(ks, ro, rd, uni, cfg)
+    hk = trace_hits(ks, ro, rd)
+    hp = closest_hit_plain(ks, ro, rd)
+    _build.raise_on_overflow(dev)
+    for a, b in zip(with_c, without):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int(cnt[0].min()) >= 1
+    assert int(cnt[1].max()) <= cfg.bounces * ks.accel.triangles.count
+    assert 0 < float(cnt[1].float().mean()) < 1000
+    rows = lambda h: torch.stack([h.t, *h.normal, *h.albedo, *h.specular,  # noqa: E731
+                                  *h.emission, h.smoothness])
+    assert torch.equal(_bits(rows(hk)), _bits(rows(hp)))
+    assert torch.equal(hk.prim, hp.prim)
+    assert 0.2 < float((hk.t < 1e30).float().mean()) < 1.0
+
+
+def test_replace_and_skybox_lookups_on_card(dev, monkeypatch):
+    # .replace keeps CUDA tensors where they are. sample_skybox_rgbe's three
+    # lookups on CUDA tensors agree with the CPU's: the nearest and
+    # stochastic taps bit for bit on all but 0.1% of rays, the bilinear blend
+    # within SKY_RTOL. The only difference is in the texel coordinates:
+    # torch's CUDA acos and atan2 are the CUDA math library's (2 and 3 ulp
+    # at most) and round otherwise than the CPU's. So the texel indices
+    # agree on all but 0.1% of rays, the weights wy/wx to SKY_W_ULP ulps of
+    # H or W (the spacing of row01*H and col01*W at their largest), and the
+    # lookups on the card's coordinates are the CPU's bit for bit (the same
+    # decode table, the same IEEE products and sums, one torch op each).
+    from unityraytracer_tpu_torch.models.skybox import sun_sky
+    from unityraytracer_tpu_torch.ops import shade
+
+    scene = fixtures.bench_scene(2000).to(dev)
+    moved = scene.replace(ground_enabled=torch.zeros((), device=dev))
+    assert moved.triangles is scene.triangles and moved is not scene
+    assert float(scene.ground_enabled) == 1.0
+    state = render.RenderState.create(8, 4, dev).replace(n_samples=3)
+    assert state.accum.device.type == dev.type and state.n_samples == 3
+    t = torch.ones(5, device=dev)
+    hit = shade.Hit(t=t, position=(t,) * 3, normal=(t,) * 3,
+                    albedo=(t,) * 3, specular=(t,) * 3, emission=(t,) * 3,
+                    smoothness=t)
+    assert hit.replace(t=t * 2).t.device.type == dev.type
+
+    H, W = 32, 64
+    sky = sun_sky(H, W)
+    g = np.random.default_rng(0)
+    d = g.normal(size=(3, 4096)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    u = g.uniform(size=(2, 4096)).astype(np.float32)
+    plane = shade.pack_rgbe_np(sky).view(np.int32)
+
+    def lookups(where):
+        sk = torch.from_numpy(sky).to(where)
+        rd = tuple(torch.from_numpy(c.copy()).to(where) for c in d)
+        u1, u2 = (torch.from_numpy(c.copy()).to(where) for c in u)
+        pk = torch.from_numpy(plane).to(where)
+        return [torch.stack(shade.sample_skybox_rgbe(sk, rd, **kw)).cpu()
+                for kw in (dict(u1=u1, u2=u2), dict(bilinear=False),
+                           dict(packed=pk), {})]
+
+    card, cpu = lookups(dev), lookups("cpu")
+    for a, b in zip(card[:2], cpu[:2]):
+        same = (a.view(torch.int32) == b.view(torch.int32)).all(dim=0)
+        assert float(same.float().mean()) >= 0.999
+    rel = max(float(((a - cpu[3]).abs() / cpu[3].abs()).max())
+              for a in card[2:])
+    print(f"bilinear lookup, card against CPU: max rel {rel:.3e}")
+    assert rel <= SKY_RTOL
+
+    rd_card = tuple(torch.from_numpy(c.copy()).to(dev) for c in d)
+    c_card = [c.cpu() for c in shade._equirect_coords((H, W), rd_card)]
+    c_cpu = shade._equirect_coords((H, W), tuple(torch.from_numpy(c.copy())
+                                                 for c in d))
+    for a, b in zip(c_card[:4], c_cpu[:4]):
+        assert float((a == b).float().mean()) >= 0.999
+    same = (c_card[0] == c_cpu[0]) & (c_card[2] == c_cpu[2])
+    for a, b, size in zip(c_card[4:], c_cpu[4:], (H, W)):
+        ulps = float((a - b)[same].abs().max()) / np.spacing(np.float32(size))
+        print(f"weight over {size} texels, card against CPU: {ulps:.2f} ulp")
+        assert ulps <= SKY_W_ULP
+    monkeypatch.setattr(shade, "_equirect_coords", lambda hw, rd: c_card)
+    for a, b in zip(card, lookups("cpu")):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

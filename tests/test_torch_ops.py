@@ -197,7 +197,7 @@ def test_equirect_coords_and_rgbe_taps_exact():
     for jpk, tpk in ((jp, tp), (None, None)):
         j = jsh.sample_skybox_rgbe(jnp.asarray(sky), jd, u1=ju1, u2=ju2,
                                    packed=jpk)
-        t = tsh.sample_skybox_rgbe(torch.from_numpy(sky), td, tu1, tu2,
+        t = tsh.sample_skybox_rgbe(torch.from_numpy(sky), td, u1=tu1, u2=tu2,
                                    packed=tpk)
         for k in range(3):
             np.testing.assert_array_equal(t[k].numpy(), np.asarray(j[k]))

@@ -18,10 +18,11 @@ import numpy as np
 import torch
 
 from .ops import vec
+from .scene import Replaceable
 
 
 @dataclasses.dataclass
-class Camera:
+class Camera(Replaceable):
     """Pinhole/thin-lens camera.
 
     Attributes:

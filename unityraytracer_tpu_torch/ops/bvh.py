@@ -19,11 +19,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..scene import Scene, Triangles, tree_to
+from ..scene import Replaceable, Scene, Triangles, tree_to
 
 
 @dataclasses.dataclass
-class ClusterAccel:
+class ClusterAccel(Replaceable):
     """Render-ready acceleration structure (numpy leaves; ``to`` uploads)."""
 
     triangles: Triangles   # Morton-reordered, padded to C * cluster_size

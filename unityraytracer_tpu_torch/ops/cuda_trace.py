@@ -215,7 +215,7 @@ class KernelScene:
 
     @property
     def plain_scene(self) -> Scene:
-        return dataclasses.replace(self.scene, triangles=self.accel.triangles)
+        return self.scene.replace(triangles=self.accel.triangles)
 
     @property
     def args(self) -> _build.SceneArgs:
@@ -371,13 +371,17 @@ def trace_hits(ks: KernelScene, ro: Vec3, rd: Vec3, alive=None,
     return _hit_from_rows(ro, rd, out, prim)
 
 
-def make_pallas_tracer(scene: Scene, accel: ClusterAccel,
-                       sort: bool = True):
+def make_pallas_tracer(scene: Scene, accel: ClusterAccel, cfg=None,
+                       interpret=None, *, sort: bool = True):
     """``fn(ro, rd, alive=None, bin_rays=False) -> Hit`` on the closest-hit
     kernel (``tracer="pallas"`` with ``megakernel=False``), which sorts the
-    rays when the bounce loop asks (``bin_rays``). ``sort=False`` ignores
-    ``bin_rays``, as the JAX package's ``"bvh"`` and ``"cluster"`` tracers
-    do (``ops/traverse.py:270``)."""
+    rays when the bounce loop asks (``bin_rays``). ``cfg`` and
+    ``interpret`` take the JAX signature's places and change no hit: the
+    kernel reads no config, and a CPU tensor, not ``interpret``, selects
+    the plain version. ``sort=False`` ignores ``bin_rays``, as the JAX
+    package's ``"bvh"`` and ``"cluster"`` tracers do
+    (``ops/traverse.py:270``)."""
+    del cfg, interpret
     ks = accel if isinstance(accel, KernelScene) else \
         KernelScene.create(scene, accel)
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import vec
+from ..scene import Replaceable
 from .vec import Vec3
 from .sampling import PI, sample_hemisphere, sample_hemisphere_ct
 
@@ -26,7 +27,7 @@ MISS_T = 1e30  # distances >= this are misses
 
 
 @dataclasses.dataclass
-class Hit:
+class Hit(Replaceable):
     """Per-ray hit record, component-SoA. ``prim`` (optional) is the
     winning primitive: triangle index in accel order, ``T`` for the ground,
     ``T + 1 + s`` for sphere s, -1 for a miss."""
@@ -163,17 +164,37 @@ def pick_texel(skybox_hw, rd: Vec3, u1, u2):
     return torch.where(u1 < wy, y1, y0), torch.where(u2 < wx, x1, x0)
 
 
-def sample_skybox_rgbe(skybox, rd: Vec3, u1, u2, packed=None) -> Vec3:
-    """One stochastic tap of the packed RGBE plane per ray: each bilinear
-    corner with probability equal to its weight (u1, u2 per-ray uniforms),
-    so the accumulated image converges to the bilinear lookup. ``packed``:
-    the baked (H*W,) plane; packed from ``skybox`` when None."""
+def sample_skybox_rgbe(skybox, rd: Vec3, bilinear: bool = True,
+                       u1=None, u2=None, packed=None) -> Vec3:
+    """Equirect lookup through the packed RGBE plane, as the JAX package's
+    ``sample_skybox_rgbe``: with ``u1``/``u2`` (per-ray uniforms) one
+    stochastic tap, each bilinear corner with probability equal to its
+    weight, so the accumulated image converges to the bilinear lookup;
+    without them the bilinear blend of the four decoded corners, or with
+    ``bilinear=False`` the nearest texel. ``packed``: the baked (H*W,)
+    plane; packed from ``skybox`` when None."""
     H, W = skybox.shape[0], skybox.shape[1]
     if packed is None:
         packed = torch.as_tensor(pack_rgbe_np(skybox.cpu().numpy())
                                  .view(np.int32), device=skybox.device)
-    yn, xn = pick_texel((H, W), rd, u1, u2)
-    return _decode_rgbe(rgbe_words(packed)[(yn * W + xn).long()])
+    words = rgbe_words(packed)
+    if u1 is not None:
+        yn, xn = pick_texel((H, W), rd, u1, u2)
+        return _decode_rgbe(words[(yn * W + xn).long()])
+    y0, y1, x0, x1, wy, wx = _equirect_coords((H, W), rd)
+    if not bilinear:
+        yn = torch.where(wy > 0.5, y1, y0)
+        xn = torch.where(wx > 0.5, x1, x0)
+        return _decode_rgbe(words[(yn * W + xn).long()])
+    c00, c01, c10, c11 = (_decode_rgbe(words[(y * W + x).long()])
+                          for y, x in ((y0, x0), (y0, x1), (y1, x0),
+                                       (y1, x1)))
+    out = []
+    for k in range(3):
+        top = c00[k] * (1 - wx) + c01[k] * wx
+        bot = c10[k] * (1 - wx) + c11[k] * wx
+        out.append(top * (1 - wy) + bot * wy)
+    return tuple(out)
 
 
 def shade(ro: Vec3, rd: Vec3, energy: Vec3, hit: Hit, uniforms, trig=None):

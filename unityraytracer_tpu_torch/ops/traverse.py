@@ -26,8 +26,6 @@ carry ``prim`` numbered as the kernel numbers it (triangles in accel order,
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ..scene import Scene
@@ -253,7 +251,7 @@ def accel_tracer_plain(scene: Scene, accel, cfg):
     has_tris = scene.num_triangles > 0
     # The accel's padded triangles number the ground and sphere prims as the
     # kernel numbers them.
-    scene = dataclasses.replace(scene, triangles=accel.triangles)
+    scene = scene.replace(triangles=accel.triangles)
 
     def tracer(ro: Vec3, rd: Vec3, alive=None, bin_rays: bool = False) -> Hit:
         del alive, bin_rays

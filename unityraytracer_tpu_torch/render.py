@@ -55,7 +55,7 @@ from .ops.cuda_path import path_trace
 from .ops.cuda_trace import KernelScene
 from .ops.sampling import sample_unit_disk
 from .ops.shade import MISS_T, sample_skybox, sample_skybox_rgbe, shade
-from .scene import Scene
+from .scene import Replaceable, Scene
 from .utils.denoise import atrous_denoise
 from .utils.image import tonemap_aces, write_png
 
@@ -69,7 +69,7 @@ SPLIT_BLOCK = 1024
 
 
 @dataclasses.dataclass
-class RenderState:
+class RenderState(Replaceable):
     """Progressive accumulation state."""
 
     accum: torch.Tensor   # (H, W, 3) running mean, linear radiance
@@ -560,12 +560,16 @@ def _path_trace_split(scene: Scene, ks: KernelScene, ro, rd, uni, k_bounce,
 
 def render_sample_mega(scene: Scene, accel, camera: Camera, key,
                        cfg: RenderConfig, row0: int = 0,
-                       rows: Optional[int] = None):
+                       rows: Optional[int] = None,
+                       interpret: Optional[bool] = None):
     """``render_sample`` through the path kernel (``ops/cuda_path.py``):
     the same uniform streams, every bounce in one launch (or two segments
     with ``cfg.split_bounce``), then the sky tap composed into the radiance
     in one launch. ``accel``: a ``KernelScene`` or the scene's
-    ``ClusterAccel``."""
+    ``ClusterAccel``. ``interpret`` takes the JAX signature's place and
+    changes nothing: the scene's device selects the kernels or their plain
+    versions."""
+    del interpret
     ks = accel if isinstance(accel, KernelScene) else \
         KernelScene.create(scene, accel)
     ro, rd, uni, k_bounce, from_blocks = _frame_inputs(scene, camera, key,

@@ -56,6 +56,15 @@ def tree_to(obj, device):
     return tree_map(lambda a: _to_tensor(a, device), obj)
 
 
+class Replaceable:
+    """``replace(**kw)``, the copy with fields changed that the JAX
+    package's ``flax.struct.dataclass`` types carry; mixed into the port's
+    dataclasses of the same names."""
+
+    def replace(self, **updates):
+        return dataclasses.replace(self, **updates)
+
+
 @dataclasses.dataclass
 class Material:
     """Host-side material description (RayTraceParams analog)."""
@@ -71,7 +80,7 @@ GROUND_MATERIAL = Material(GROUND_ALBEDO, GROUND_SPECULAR, GROUND_EMISSION,
 
 
 @dataclasses.dataclass
-class Materials:
+class Materials(Replaceable):
     """SoA material table."""
 
     albedo: object      # (M, 3)
@@ -82,6 +91,11 @@ class Materials:
     @property
     def count(self) -> int:
         return self.albedo.shape[0]
+
+    def take(self, idx):
+        """Gather per-ray material params by index array."""
+        return (self.albedo[idx], self.specular[idx], self.emission[idx],
+                self.smoothness[idx])
 
     @staticmethod
     def from_list(mats: Sequence[Material]) -> "Materials":
@@ -96,7 +110,7 @@ class Materials:
 
 
 @dataclasses.dataclass
-class Spheres:
+class Spheres(Replaceable):
     """SoA sphere set."""
 
     center: object       # (S, 3)
@@ -109,7 +123,7 @@ class Spheres:
 
 
 @dataclasses.dataclass
-class Triangles:
+class Triangles(Replaceable):
     """World-space SoA triangle soup with smooth vertex normals."""
 
     v0: object           # (T, 3)
@@ -126,7 +140,7 @@ class Triangles:
 
 
 @dataclasses.dataclass
-class Scene:
+class Scene(Replaceable):
     """Complete render-ready scene (numpy leaves after build, torch tensors
     after ``to``)."""
 
