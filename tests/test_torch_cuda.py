@@ -31,7 +31,14 @@ unsorted launch, counts included, and the closest-hit kernel's trace order
 is ``bin_destinations``'. Under ``rng_impl="rbg"`` every draw kernel's
 rbg mode (Philox4x32-10) is bit-identical to its plain version, at sizes
 with n % 4 != 0, with a key whose counter carries and with ray_index
-counters."""
+counters.
+
+The ``multicard`` tests skip unless torch sees two or more cards: the main
+frame, the closest-hit kernel, the sky tap and ``urt_atrous`` on the last
+card, launched while card 0 is current, equal card 0's bit for bit and
+count their launches on their own card; ``ShardedRenderer`` in ``rows`` and
+``scene`` over every card equals the same mesh of logical shards of card 0;
+``allreduce_hit`` of shards on every card equals the logical combine."""
 
 from pathlib import Path
 
@@ -910,3 +917,135 @@ def test_replace_and_skybox_lookups_on_card(dev, monkeypatch):
     monkeypatch.setattr(shade, "_equirect_coords", lambda hw, rd: c_card)
     for a, b in zip(card, lookups("cpu")):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# -- several cards (skip unless torch sees two or more) ----------------------
+
+@pytest.fixture(scope="module")
+def cards():
+    """Card 0 and the last card, the latter never current by default."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices (torch sees {n})")
+    _build.lib()
+    return torch.device("cuda", 0), torch.device("cuda", n - 1)
+
+
+def _card_launches():
+    return {k: {n: c for n, c in v.items() if c}
+            for k, v in _build.CARD_LAUNCHES.items()}
+
+
+@pytest.mark.parametrize("impl", ["threefry2x32", "rbg"])
+def test_multicard_frame_on_the_last_card(cards, impl):
+    """A Renderer on the last card (card 0 current throughout): its frames
+    launch the four kernels there alone and equal card 0's bit for bit."""
+    first, last = cards
+    scene = fixtures.bench_scene(20_000)
+    accel = build_cluster_accel(scene.triangles, 64)
+    cfg = RenderConfig(width=320, height=180, spp=1, bounces=4,
+                       tracer="pallas", rng_impl=impl)
+    cam = fixtures.bench_camera(320 / 180)
+    imgs, la = {}, {}
+    with torch.cuda.device(first):
+        for d in (first, last):
+            _build.CARD_LAUNCHES.clear()
+            imgs[d] = Renderer(scene, cam, cfg, accel=accel, seed=2,
+                               device=d).step(2).image
+            la[d] = _card_launches()
+    assert list(la[last]) == [last.index] and list(la[first]) == [first.index]
+    assert la[last][last.index] == la[first][first.index]
+    assert sum(la[last][last.index].values()) == 2 * 4
+    assert np.array_equal(imgs[first], imgs[last]) and imgs[last].max() > 0
+
+
+def test_multicard_kernels_on_the_last_card(cards):
+    """The closest-hit kernel, the sky tap (both fetches) and urt_atrous on
+    tensors of the last card, launched with card 0 current: bit-equal to
+    the same launches on card 0, each counted on its own card."""
+    first, last = cards
+    s = fixtures.bench_scene(2000)
+    on = {d: KernelScene.create(s.to(d), build_cluster_accel(s.triangles, 64),
+                                d) for d in cards}
+    ro, rd = _rays(first, 20_000, 4)
+    alive = torch.arange(20_000, device=first) % 5 != 0
+    rad, sky_e, sky_d, idx = _sky_inputs(first, 6, True)
+    keys = (rng.key(6), rng.key(7))
+    g = torch.Generator(device=first).manual_seed(9)
+    img = torch.rand((37, 53, 3), generator=g, device=first) ** 3 * 4
+    albedo = torch.rand((37, 53, 3), generator=g, device=first)
+    out, la = {}, {}
+    with torch.cuda.device(first):
+        for d in cards:
+            def to(v):          # a copy on every card: the tap writes rad
+                return tuple(c.to(d, copy=True) for c in v)
+
+            _build.CARD_LAUNCHES.clear()
+            h = trace_hits(on[d], to(ro), to(rd), alive.to(d))
+            taps = [sky_tap(s.skybox.shape[:2], on[d].scene.skybox_rgbe,
+                            to(rad), to(sky_e), to(sky_d), keys,
+                            ray_index=idx.to(d), impl=impl)
+                    for impl in ("int8x8", "bf16")]
+            den = atrous_denoise(img.to(d), 3, 0.3, albedo=albedo.to(d))
+            torch.cuda.synchronize(d)
+            _build.raise_on_overflow(d)
+            la[d] = _card_launches()
+            out[d] = [h.t, *h.normal, *h.albedo, *h.emission, h.smoothness,
+                      h.prim, *taps[0], *taps[1], den]
+    for d in cards:
+        assert la[d] == {d.index: {"trace": 1, "env": 1, "env_planes": 1,
+                                   "atrous": 3}}
+    for a, b in zip(out[first], out[last]):
+        assert b.device == last
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("mode", ["rows", "scene"])
+def test_multicard_sharded_renderer_equals_logical_shards(cards, mode):
+    """ShardedRenderer over every card against the same mesh of logical
+    shards of card 0, bit for bit; every card launches."""
+    from unityraytracer_tpu_torch.parallel.sharding import (ShardedRenderer,
+                                                            make_mesh)
+
+    n = torch.cuda.device_count()
+    scene = fixtures.bench_scene(20_000)
+    tracer = "pallas" if mode == "rows" else "cluster"
+    cfg = RenderConfig(width=320, height=n * 40, spp=1, bounces=4,
+                       tracer=tracer)
+    cam = fixtures.bench_camera(320 / (n * 40))
+    imgs, la = {}, {}
+    for name, mesh in (("cards", make_mesh()), ("logical", [cards[0]] * n)):
+        _build.CARD_LAUNCHES.clear()
+        r = ShardedRenderer(scene, cam, cfg, mesh=mesh, seed=4, mode=mode)
+        imgs[name] = r.step(2).image
+        la[name] = _card_launches()
+    assert sorted(la["cards"]) == list(range(n))
+    assert list(la["logical"]) == [0]
+    assert np.array_equal(imgs["cards"], imgs["logical"])
+    assert imgs["cards"].max() > 0
+
+
+def test_multicard_allreduce_hit_equals_the_logical_combine(cards):
+    """allreduce_hit of scene shards on every card, onto card 0, against
+    the same shards all on card 0: every row bit for bit."""
+    from unityraytracer_tpu_torch.parallel import scene_shard
+
+    n = torch.cuda.device_count()
+    scene = fixtures.bench_scene(n_tris=20_000)
+    cfg = RenderConfig(cluster_size=64, tracer="cluster")
+    stacked = scene_shard.shard_scene_accels(scene, cfg, n)
+    ro, rd = _rays(cards[0], 200_000, 8)
+    combined = {}
+    for name, mesh in (("cards", [torch.device("cuda", k) for k in range(n)]),
+                       ("logical", [cards[0]] * n)):
+        hits = []
+        for ks in scene_shard.shard_kernel_scenes(scene, stacked, mesh):
+            hits.append(trace_hits(ks, tuple(c.to(ks.device) for c in ro),
+                                   tuple(c.to(ks.device) for c in rd)))
+        h = scene_shard.allreduce_hit(hits, cards[0])
+        combined[name] = [h.t, *h.position, *h.normal, *h.albedo,
+                          *h.specular, *h.emission, h.smoothness]
+    for a, b in zip(combined["cards"], combined["logical"]):
+        assert a.device == cards[0]
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (combined["cards"][0] < 1e30).float().mean().item() > 0.2

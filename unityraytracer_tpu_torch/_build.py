@@ -9,8 +9,12 @@ nvcc from contracting multiply-adds, so the kernels round as their plain
 torch versions do and the kernel-vs-plain checks stay tight.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``check`` raises on a non-zero code. ``LAUNCHES``
-counts kernel launches by name; each wrapper adds one where it launches.
+``cudaGetLastError()``; ``check`` raises on a non-zero code. CUDA launches a
+kernel only into a stream of the current card, so each wrapper makes the
+card of its launch's tensors current around the call (``on_card``) and
+hands it that card's current stream (``stream_ptr``). ``count`` counts a
+launch by name in ``LAUNCHES`` and by card in ``CARD_LAUNCHES``; each
+wrapper calls it where it launches.
 
 A traversal-stack overflow sets the device's ``error_flag`` (the kernels
 ``atomicOr`` it) instead of dropping nodes silently. Reading the flag waits
@@ -20,6 +24,7 @@ reads it: ``Renderer.step`` once per call, after its synchronize.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,6 +44,8 @@ LAUNCHES = {"path": 0, "trace": 0, "env": 0, "env_planes": 0, "uniform": 0,
             "bounce_rows": 0, "camera": 0, "atrous": 0, "env_rbg": 0,
             "env_planes_rbg": 0, "uniform_rbg": 0, "bounce_rows_rbg": 0,
             "camera_rbg": 0}
+# CARD_LAUNCHES[card index][name]: the launches of ``LAUNCHES`` by card.
+CARD_LAUNCHES = {}
 # Bounces whose keys the uniform-row kernel's prologue holds
 # (URT_MAX_BOUNCES in uniform_kernel.cu).
 MAX_BOUNCES = 32
@@ -188,6 +195,19 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
+def on_card(device):
+    """Context in which ``device``'s card is the current CUDA device. Each
+    wrapper enters it around its launch with the device of the launch's
+    tensors: CUDA refuses a launch into a stream of another card than the
+    current one. A null context when that card is already current (every
+    launch of a one-card frame), ``torch.cuda.device`` otherwise."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def stream_ptr(device) -> int:
     import torch
 
@@ -197,6 +217,16 @@ def stream_ptr(device) -> int:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
+
+
+def count(name: str, device) -> None:
+    """Count one launch of kernel ``name`` on ``device`` (a tensor's device,
+    which names its card)."""
+    LAUNCHES[name] += 1
+    card = CARD_LAUNCHES.get(device.index)
+    if card is None:
+        card = CARD_LAUNCHES[device.index] = dict.fromkeys(LAUNCHES, 0)
+    card[name] += 1
 
 
 _ERR_FLAGS = {}

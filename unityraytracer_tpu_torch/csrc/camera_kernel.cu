@@ -242,16 +242,16 @@ __global__ void __launch_bounds__(URT_CAM_THREADS)
 // out: (6, n) float32, rows ro x, y, z and rd x, y, z.
 extern "C" int urt_camera_rays(const CameraArgs* a, float* out,
                                cudaStream_t stream) {
-  static int wave = 0, wave_rbg = 0;
+  static int wave[URT_MAX_CARDS] = {}, wave_rbg[URT_MAX_CARDS] = {};
   if (a->n > 0 && a->rbg) {
     const int blocks =
         urt_wave_blocks(urt_camera_rays_rbg_kernel, URT_CAM_THREADS,
-                        ((long long)a->n + 3) / 4, &wave_rbg);
+                        ((long long)a->n + 3) / 4, wave_rbg);
     urt_camera_rays_rbg_kernel<<<blocks, URT_CAM_THREADS, 0, stream>>>(*a,
                                                                        out);
   } else if (a->n > 0) {
     const int blocks =
-        urt_wave_blocks(urt_camera_rays_kernel, URT_CAM_THREADS, a->n, &wave);
+        urt_wave_blocks(urt_camera_rays_kernel, URT_CAM_THREADS, a->n, wave);
     urt_camera_rays_kernel<<<blocks, URT_CAM_THREADS, 0, stream>>>(*a, out);
   }
   return (int)cudaGetLastError();

@@ -62,20 +62,28 @@ static __device__ __forceinline__ void urt_store4(float* p, const float* v,
   }
 }
 
+// Cards whose occupancy urt_wave_blocks keeps (one past them is asked at
+// every call).
+#define URT_MAX_CARDS 64
+
 // Blocks for n items of `threads` threads: the SMs times the blocks of
 // `kernel` an SM holds at once, or fewer when n needs fewer. The occupancy
-// is asked on the first call and kept in *cache (one card model a process).
+// is asked on the current card's first call and kept in cache[card]; the
+// wrappers make the card of the launch's tensors current
+// (_build.on_card), so each card keeps its own.
 template <typename Kernel>
 static int urt_wave_blocks(Kernel kernel, int threads, long long n,
                            int* cache) {
-  if (*cache == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+  int dev = 0, fresh = 0;
+  cudaGetDevice(&dev);
+  int* wave = dev >= 0 && dev < URT_MAX_CARDS ? &cache[dev] : &fresh;
+  if (*wave == 0) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                   0);
-    *cache = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+    *wave = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   }
   const long long want = (n + threads - 1) / threads;
-  return (int)(want < *cache ? want : *cache);
+  return (int)(want < *wave ? want : *wave);
 }

@@ -240,17 +240,17 @@ extern "C" int urt_uniform(unsigned int k0, unsigned int k1, unsigned int k2,
 
 extern "C" int urt_bounce_rows(const BounceArgs* a, float* out,
                                cudaStream_t stream) {
-  static int wave = 0, wave_rbg = 0;
+  static int wave[URT_MAX_CARDS] = {}, wave_rbg[URT_MAX_CARDS] = {};
   if (a->n > 0 && a->nb > 0) {
     if (a->rbg) {
       const int blocks =
           urt_wave_blocks(urt_bounce_rows_rbg_kernel, URT_ROWS_THREADS,
-                          ((long long)a->n + 3) / 4, &wave_rbg);
+                          ((long long)a->n + 3) / 4, wave_rbg);
       urt_bounce_rows_rbg_kernel<<<blocks, URT_ROWS_THREADS, 0, stream>>>(
           *a, out);
     } else {
       const int blocks = urt_wave_blocks(urt_bounce_rows_kernel,
-                                         URT_ROWS_THREADS, a->n, &wave);
+                                         URT_ROWS_THREADS, a->n, wave);
       urt_bounce_rows_kernel<<<blocks, URT_ROWS_THREADS, 0, stream>>>(*a,
                                                                       out);
     }

@@ -188,12 +188,13 @@ def sky_tap(skybox_hw, packed, radiance: Vec3, sky_e: Vec3, sky_d: Vec3,
         raise ValueError("the sky tap's two keys are of two rng impls")
     # Threefry's two keys are words 0-1 and 2-3; rbg's 0-3 and 4-7.
     k = (*w1, *w2) if rbg1 else (*w1[:2], *w2[:2], 0, 0, 0, 0)
-    code = _build.lib().urt_sky_tap(
-        *(r.data_ptr() for r in (*radiance, *sky_e, *sky_d)),
-        table.data_ptr(), int(planes), rgbe_scale(dev).data_ptr(), H, W, *k,
-        rbg1, ray_index.data_ptr() if ray_index is not None else None, lat_h,
-        lat_w, n, _build.stream_ptr(dev))
+    with _build.on_card(table.device):
+        code = _build.lib().urt_sky_tap(
+            *(r.data_ptr() for r in (*radiance, *sky_e, *sky_d)),
+            table.data_ptr(), int(planes), rgbe_scale(dev).data_ptr(), H, W,
+            *k, rbg1, ray_index.data_ptr() if ray_index is not None else None,
+            lat_h, lat_w, n, _build.stream_ptr(table.device))
     name = ("env_planes" if planes else "env") + ("_rbg" if rbg1 else "")
-    _build.LAUNCHES[name] += 1
+    _build.count(name, table.device)
     _build.check(code, name)
     return radiance

@@ -183,16 +183,18 @@ def path_trace(ks: KernelScene, ro: Vec3, rd: Vec3, uni, cfg, *,
     out = torch.empty((9, n), dtype=torch.float32, device=ks.device)
     state = (torch.empty((16, n), dtype=torch.float32, device=ks.device)
              if emit_state else None)
-    code = _build.lib().urt_path_trace(
-        ctypes.byref(ks.args), ro3.data_ptr(), rd3.data_ptr(),
-        a1.data_ptr() if a1 is not None else None,
-        e3.data_ptr() if e3 is not None else None,
-        uni.data_ptr(), out.data_ptr(),
-        state.data_ptr() if emit_state else None,
-        check_counts(ks, counts, n), n, b0, nb, cfg.bounces,
-        int(cfg.russian_roulette), lo, hi, SORT_WINDOW,
-        _build.error_flag(ks.device).data_ptr(), _build.stream_ptr(ks.device))
-    _build.LAUNCHES["path"] += 1
+    with _build.on_card(out.device):
+        code = _build.lib().urt_path_trace(
+            ctypes.byref(ks.args), ro3.data_ptr(), rd3.data_ptr(),
+            a1.data_ptr() if a1 is not None else None,
+            e3.data_ptr() if e3 is not None else None,
+            uni.data_ptr(), out.data_ptr(),
+            state.data_ptr() if emit_state else None,
+            check_counts(ks, counts, n), n, b0, nb, cfg.bounces,
+            int(cfg.russian_roulette), lo, hi, SORT_WINDOW,
+            _build.error_flag(out.device).data_ptr(),
+            _build.stream_ptr(out.device))
+    _build.count("path", out.device)
     _build.check(code, "path")
     ret = (out[0], out[1], out[2]), (out[3], out[4], out[5]), \
         (out[6], out[7], out[8])

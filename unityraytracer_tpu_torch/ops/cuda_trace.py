@@ -337,15 +337,16 @@ def launch_trace(ks: KernelScene, ro: Vec3, rd: Vec3, alive=None,
     ro3, rd3 = vec.stack(ro), vec.stack(rd)
     out = torch.empty((14, n), dtype=torch.float32, device=ks.device)
     prim = torch.empty((n,), dtype=torch.int32, device=ks.device)
-    code = _build.lib().urt_trace_hits(
-        ctypes.byref(ks.args), ro3.data_ptr(), rd3.data_ptr(),
-        alive_f.data_ptr(), out.data_ptr(), prim.data_ptr(),
-        check_counts(ks, counts, n),
-        order.data_ptr() if order is not None else None, n, mode,
-        SORT_WINDOW, _build.error_flag(ks.device).data_ptr(),
-        _build.stream_ptr(ks.device))
+    with _build.on_card(out.device):
+        code = _build.lib().urt_trace_hits(
+            ctypes.byref(ks.args), ro3.data_ptr(), rd3.data_ptr(),
+            alive_f.data_ptr(), out.data_ptr(), prim.data_ptr(),
+            check_counts(ks, counts, n),
+            order.data_ptr() if order is not None else None, n, mode,
+            SORT_WINDOW, _build.error_flag(out.device).data_ptr(),
+            _build.stream_ptr(out.device))
     _build.check(code, "trace")
-    _build.LAUNCHES["trace"] += 1
+    _build.count("trace", out.device)
     return out, prim
 
 

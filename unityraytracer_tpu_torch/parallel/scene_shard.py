@@ -31,6 +31,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .. import _build
 from ..ops.bvh import ClusterAccel, build_cluster_accel, morton_encode_3d
 from ..ops.cuda_trace import KernelScene, scene_bbox
 from ..ops.shade import Hit
@@ -162,11 +163,11 @@ _ROWS = ("position", "normal", "albedo", "specular", "emission")
 
 def on_device(device):
     """Context that makes ``device`` the current CUDA device (a no-op off
-    the card). The kernel wrappers launch on the current device's context
-    with the stream of their tensors' device, so a shard's work on a
-    second card runs inside this."""
+    the card), so that a shard's torch work that names no card, and its
+    current stream, are that card's. Each kernel wrapper also makes its
+    tensors' card current around its own launch (``_build.on_card``)."""
     device = torch.device(device)
-    return (torch.cuda.device(device) if device.type == "cuda"
+    return (_build.on_card(device) if device.type == "cuda"
             else contextlib.nullcontext())
 
 

@@ -242,10 +242,12 @@ def _camera_rays(camera, key, cfg, h, W, spp, row0, blocked, device):
         raise ValueError(f"no camera-ray kernel for device {device}")
     args = camera_args(camera, key, cfg, h, W, spp, row0, blocked)
     out = torch.empty((6, args.n), dtype=torch.float32, device=device)
-    code = _build.lib().urt_camera_rays(ctypes.byref(args), out.data_ptr(),
-                                        _build.stream_ptr(device))
+    with _build.on_card(out.device):
+        code = _build.lib().urt_camera_rays(ctypes.byref(args),
+                                            out.data_ptr(),
+                                            _build.stream_ptr(out.device))
     name = "camera_rbg" if args.rbg else "camera"
-    _build.LAUNCHES[name] += 1
+    _build.count(name, out.device)
     _build.check(code, name)
     return (out[0], out[1], out[2]), (out[3], out[4], out[5]), k_bounce
 
@@ -440,10 +442,12 @@ def bounce_rows(k_bounce, cfg: RenderConfig, h: int, row0: int,
     args = bounce_args(k_bounce, cfg, h, row0, blocked)
     uni = torch.empty((cfg.bounces, 5, args.n), dtype=torch.float32,
                       device=device)
-    code = _build.lib().urt_bounce_rows(ctypes.byref(args), uni.data_ptr(),
-                                        _build.stream_ptr(device))
+    with _build.on_card(uni.device):
+        code = _build.lib().urt_bounce_rows(ctypes.byref(args),
+                                            uni.data_ptr(),
+                                            _build.stream_ptr(uni.device))
     name = "bounce_rows_rbg" if args.rbg else "bounce_rows"
-    _build.LAUNCHES[name] += 1
+    _build.count(name, uni.device)
     _build.check(code, name)
     return uni
 

@@ -261,9 +261,10 @@ def uniform(key_: np.ndarray, shape: Sequence[int],
     words, rbg = kernel_words(key_)
     n = math.prod(shape)
     out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    code = _build.lib().urt_uniform(*words, rbg, out.data_ptr(), n,
-                                    _build.stream_ptr(device))
+    with _build.on_card(out.device):
+        code = _build.lib().urt_uniform(*words, rbg, out.data_ptr(), n,
+                                        _build.stream_ptr(out.device))
     name = "uniform_rbg" if rbg else "uniform"
-    _build.LAUNCHES[name] += 1
+    _build.count(name, out.device)
     _build.check(code, name)
     return out

@@ -141,13 +141,14 @@ def atrous_denoise(img, iterations: int = 3, sigma_color: float = 0.1,
         return img
     bufs = (torch.empty_like(img), torch.empty_like(img))
     src = img
-    lib = _build.lib()
-    stream = _build.stream_ptr(img.device)
     for level in range(iterations):
         dst = bufs[level % 2]
-        code = lib.urt_atrous(src.data_ptr(), dst.data_ptr(), gp[0], gp[1],
-                              H, W, 1 << level, inv_c, gi[0], gi[1], stream)
-        _build.LAUNCHES["atrous"] += 1
+        with _build.on_card(dst.device):
+            code = _build.lib().urt_atrous(
+                src.data_ptr(), dst.data_ptr(), gp[0], gp[1], H, W,
+                1 << level, inv_c, gi[0], gi[1],
+                _build.stream_ptr(dst.device))
+        _build.count("atrous", dst.device)
         _build.check(code, "atrous")
         src = dst
     return src

@@ -112,7 +112,7 @@ def profiler_trace(logdir: str):
     try:
         yield prof
     finally:
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        for card in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(card)
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, "torch.trace.json"))
